@@ -7,14 +7,18 @@ and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the rx888 shapes, drives the rx888 configuration (129.6
-Msps real input, 1,000 SSB channels at 12 kHz with SNR squelch, a 16-channel
-wide spectrum sweep) through Engine.step on a known-answer scene, times 64
-distinct random blocks, and splits the block time by stage and by kernel
-(CUDA events, torch.profiler). Each phase prints one JSON line; the kernels line
-and the card's `nvidia-smi` name and power limit come before the last line,
-which is {"ok": true, "device": {...}}. Any failed phase exits non-zero.
-Long logs go to chiprun_out/. It imports nothing of JAX.
+PyTorch version at the rx888 shapes and at the hf32000 shapes (32,000
+channels, from tile params built directly), times each (profiler device
+time, beside its bound, its plain version and one PyTorch call as a
+yardstick), drives the rx888 configuration (129.6 Msps real input, 1,000
+SSB channels at 12 kHz with SNR squelch, a 16-channel wide spectrum sweep)
+through Engine.step on a known-answer scene, times 64 distinct random
+blocks, and splits the block time by stage and by kernel (CUDA events,
+torch.profiler), with each kernel's device time inside the step. Each
+phase prints one JSON line; the kernels line and the card's `nvidia-smi`
+name and power limit come before the last line, which is
+{"ok": true, "device": {...}}. Any failed phase exits non-zero. Long logs
+go to chiprun_out/. It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -30,9 +34,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peak rates (NVIDIA data sheet): device memory bytes/s, FP32 FLOP/s
-# outside the tensor cores (also taken as the 32-bit integer lane rate).
+# outside the tensor cores (an FMA counts 2), dense TF32 FLOP/s on the tensor
+# cores, and 32-bit integer operations/s (132 SMs x 64 INT32 lanes x the
+# 1.98 GHz boost clock).
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+TF32_OPS_S = 495e12
+INT32_OPS_S = 132 * 64 * 1.98e9
 
 FS = 129_600_000
 N0_SCENE = 1e-11  # noise density of the known-answer scene, power/Hz
@@ -76,29 +84,71 @@ def time_ms(fn, n: int = 30, warm: int = 3) -> float:
     return ts[n // 2]
 
 
-def device_ms(fn, n: int = 20, warm: int = 3) -> float:
+def device_ms(fn, n: int = 20, warm_s: float = 0.05, name: str = "") -> float:
     """Device time of one call of fn: the summed durations of the kernels and
-    copies it launches, from a torch.profiler (CUPTI) trace of n calls, over
-    n. Host launch overhead is not in it."""
+    copies it launches whose name holds `name` (all of them by default; a
+    name leaves out others, such as an L2 flush), from a torch.profiler
+    (CUPTI) trace of n calls, over n, after warm_s seconds of calls (the
+    card's clocks rise under load). Host launch overhead is not in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warm):
+    t_end = time.perf_counter() + warm_s
+    while time.perf_counter() < t_end:
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and name in ev.name]
     if not evs:
-        fail("the profiler recorded no device time")
+        fail(f"the profiler recorded no device time (kernel name {name!r})")
     return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / n
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_S, nops / FP32_OPS_S
+def bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
+    """Least ms for nbytes through device memory and, for each (count,
+    rate) of ops, count operations at that rate (each kind on its own
+    units, so the slowest sets the time); and which of the two sets it."""
+    tb, to = nbytes / HBM_BYTES_S, max(n / rate for n, rate in ops)
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def counts_a(C: int, S: int, n: int, olen: int, unique_rows: int) -> tuple[int, int]:
+    """Kernel A's work, as the function needs it: bytes (the F rows the
+    channels cover, the responses, E[:n], tile params and the output, each
+    once) and FLOP (the gather's complex products, the fold's adds, the
+    folded n-term complex product, the ramp)."""
+    nbytes = unique_rows * 128 * 8 + C * S * 8 + n * olen * 8 + C * olen * 8 + 3 * C * 4
+    return nbytes, 6 * C * S + 2 * C * (S - n) + 8 * C * n * olen + 8 * C * olen
+
+
+def bound_a(nbytes: int, nops: int) -> dict:
+    """A's bound on the tensor cores (3xTF32: three TF32 products for each
+    FP32-accurate one) and, beside it, on the FP32 cores. The operations
+    are the dense folded product the kernel does; an FFT form of the same
+    IDFT needs far fewer, so the byte term alone is given too."""
+    b, by = bound(nbytes, (3 * nops, TF32_OPS_S))
+    b32, by32 = bound(nbytes, (nops, FP32_OPS_S))
+    return {"bound_ms": b, "bound_by": by, "bound_rate": "3xTF32 on the tensor cores",
+            "ops_counted": "dense folded product 8 C n olen + gather, fold, ramp",
+            "bound_fp32_cores_ms": b32, "bound_fp32_cores_by": by32,
+            "bound_bytes_ms": nbytes / HBM_BYTES_S * 1e3}
+
+
+def counts_b(C: int, W: int, unique_bins: int) -> tuple[int, int, int]:
+    """Kernel B's work as the function needs it: bytes (the window bins
+    once, shifts, N0 and keys), FP32 operations (3 for |F|^2 of a bin, the
+    mean's compare and add) and 32-bit integer operations (one compare a
+    key: an exact order statistic reads every key at least once)."""
+    return unique_bins * 8 + C * (4 + 4 + 8), C * W * (3 + 2), C * W
+
+
+def bound_b(nbytes: int, fp_ops: int, int_ops: int) -> dict:
+    b, by = bound(nbytes, (fp_ops, FP32_OPS_S), (int_ops, INT32_OPS_S))
+    return {"bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": fp_ops + int_ops,
+            "ops_fp32": fp_ops, "ops_int32": int_ops}
 
 
 def check_kernels(eng, params, F) -> list[dict]:
@@ -113,7 +163,7 @@ def check_kernels(eng, params, F) -> list[dict]:
 
     def kern_a():
         return cc.cuda_channelize(F, p["resp_tiles"], p["tile_lo"], p["slope"], p["shifts"],
-                                  g.tile_E, g.n_bins, olen, m.real, m.N)
+                                  g.tile_E, g.n_bins, olen, m.real, m.N, E_op=g.tile_op)
 
     def plain_a():
         return tiled_channelize(F, p["resp_tiles"], p["tile_lo"], p["slope"], p["shifts"],
@@ -135,10 +185,11 @@ def check_kernels(eng, params, F) -> list[dict]:
     Fp = torch.nn.functional.pad(F, (0, nrows * _CTILE - m.bins)).reshape(nrows, _CTILE)
     x = Fp[torch.as_tensor(rows, device=F.device)].reshape(C, S) * p["resp_tiles"]
     lib_a = device_ms(lambda: torch.matmul(x, g.tile_E))
-    nb_a, nops_a = (len(np.unique(rows)) * _CTILE * 8 + C * S * 8 + S * olen * 8
-                    + C * olen * 8 + 3 * C * 4,
-                    8 * C * S * olen + 6 * C * S + 8 * C * olen)
-    b_a, by_a = bound(nb_a, nops_a)
+    nb_a, nops_a = counts_a(C, S, g.n_bins, olen, len(np.unique(rows)))
+    # A alone after a 64 MB write has evicted L2 (E's operand, the
+    # responses, F): how much of its in-step time L2 misses explain
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=F.device)
+    cold_a = device_ms(lambda: (flush.fill_(1.0), kern_a()), name="channelize_kernel")
 
     def kern_b():
         return cc.cuda_noise_est(F, p["shifts"], g.noise_bins, m.real, m.N, eng.samprate)
@@ -157,26 +208,103 @@ def check_kernels(eng, params, F) -> list[dict]:
     W = -(-g.noise_bins // _CTILE) * _CTILE
     sh = np.abs(np.asarray(g.host["shifts"], np.int64))
     start = np.clip(sh - W // 2, 0, m.bins - W) // _CTILE * _CTILE
-    nb_b = len(np.unique(start[:, None] + np.arange(W))) * 8 + C * (4 + 4 + 8)
-    nops_b = C * W * (31 + 2 + 2 + 3)  # bisection, next statistic, masked mean, |F|^2
-    b_b, by_b = bound(nb_b, nops_b)
+    bb = bound_b(*counts_b(C, W, len(np.unique(start[:, None] + np.arange(W)))))
+    energies = gather_noise_bins(F, p["shifts"], g.noise_bins, m.real, m.N)
+    i_stat = int(np.floor(0.10 * (W - 1)))
+    lib_b = device_ms(lambda: torch.kthvalue(energies, i_stat + 1, dim=-1))
 
     kernels = [
         {"name": "channelize", "route": "cuda", "source": cc.SOURCES["channelize"],
          "replaces": cc.REPLACES["channelize"], "launches": 0, "max_abs_err": err_a,
          "err_bound": 3e-5 * scale_a, "max_abs_err_vs_f64_sum": err_a64,
          "ms": device_ms(kern_a), "plain_ms": device_ms(plain_a), "call_ms": time_ms(kern_a),
-         "bound_ms": b_a, "bound_by": by_a, "library_ms": lib_a,
-         "bytes": nb_a, "ops": nops_a, "shape": {"C": C, "S": S, "olen": olen}},
+         "ms_cold_l2": cold_a, **bound_a(nb_a, nops_a), "library_ms": lib_a,
+         "library_call": "torch.matmul(gathered x [C, S] c64, E [S, olen] c64)",
+         "bytes": nb_a, "ops": nops_a,
+         "shape": {"C": C, "S": S, "n": g.n_bins, "olen": olen}},
         {"name": "noise_est", "route": "cuda", "source": cc.SOURCES["noise_est"],
          "replaces": cc.REPLACES["noise_est"], "launches": 0,
          "max_abs_err": float((n0_k - n0_t).abs().max()), "max_rel_err": rel_b,
          "keys_equal": True, "ms": device_ms(kern_b), "plain_ms": device_ms(plain_b),
-         "call_ms": time_ms(kern_b),
-         "bound_ms": b_b, "bound_by": by_b, "library_ms": None,
-         "bytes": nb_b, "ops": nops_b, "shape": {"C": C, "W": W}},
+         "call_ms": time_ms(kern_b), **bb, "library_ms": lib_b,
+         "library_call": "torch.kthvalue(gathered |F|^2 [C, W], i + 1): statistic i only",
+         "shape": {"C": C, "W": W}},
     ]
     return kernels
+
+
+def hf_tiles(C: int, device, seed: int = 7) -> dict:
+    """Kernel inputs of the hf<C> configuration (bench.py:69-80: C SSB
+    channels at 12 kHz spread over one 129.6 Msps real stream; n 300, olen
+    240), from tile params built directly rather than through an engine, and
+    a random master spectrum from `seed`."""
+    from ka9q_radio_tpu_torch.ops.filter_design import (design_bandpass_response,
+                                                        response_to_device_order)
+    from ka9q_radio_tpu_torch.ops.filterbank import (MasterConfig, build_tile_params,
+                                                     compute_tuning, tiled_idft_matrix)
+
+    n_bins, olen = 300, 240
+    m = MasterConfig.from_rate(FS, real=True)
+    resp1 = response_to_device_order(design_bandpass_response(
+        n_bins, olen, 50 / 12e3, 3e3 / 12e3, 11.0, real_master=True, master_points=m.N))
+    freqs = np.linspace(0.02 * FS, 0.48 * FS, C)
+    shifts = np.array([compute_tuning(m.N, FS, f)[0] for f in freqs], np.int32)
+    rt, tl, sl = build_tile_params(np.broadcast_to(resp1, (C, n_bins)), shifts, True, m.N)
+    rng = np.random.default_rng(seed)
+    F = (0.05 * (rng.standard_normal(m.bins) + 1j * rng.standard_normal(m.bins))).astype(np.complex64)
+    d = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return {"m": m, "n_bins": n_bins, "olen": olen, "tile_lo_host": tl, "shifts_host": shifts,
+            "F": d(F), "resp_tiles": d(rt), "tile_lo": d(tl), "slope": d(sl), "shifts": d(shifts),
+            "E": d(tiled_idft_matrix(n_bins, olen, rt.shape[-1]))}
+
+
+def check_hf32000(device, C: int = 32_000) -> dict:
+    """Both kernels against their plain versions, timed, at the hf32000
+    shapes (noise window 1,024)."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.filterbank import _CTILE, tiled_channelize
+    from ka9q_radio_tpu_torch.ops.noise import estimate_noise_keys, gather_noise_bins
+
+    h = hf_tiles(C, device)
+    m, n_bins, olen, W = h["m"], h["n_bins"], h["olen"], 1024
+    F, E, rt_d, sh_d = h["F"], h["E"], h["resp_tiles"], h["shifts"]
+    tl, shifts = h["tile_lo_host"], h["shifts_host"]
+    S = rt_d.shape[-1]
+    op = cc.channelize_operand(E, n_bins, olen)
+    args = (F, rt_d, h["tile_lo"], h["slope"], sh_d, E, n_bins, olen, True, m.N)
+    kern_a = lambda: cc.cuda_channelize(*args, E_op=op)  # noqa: E731
+    plain_a = lambda: tiled_channelize(*args)  # noqa: E731
+    got, want = kern_a(), plain_a()
+    err_a, scale_a = float((got - want).abs().max()), float(want.abs().max())
+    if not err_a < 3e-5 * scale_a:
+        fail(f"hf32000 channelize disagrees: {err_a} vs bound {3e-5 * scale_a}")
+    nrows = -(-m.bins // _CTILE)
+    rows = np.clip(tl.astype(np.int64)[:, None] + np.arange(S // _CTILE), 0, nrows - 1)
+    Fp = torch.nn.functional.pad(F, (0, nrows * _CTILE - m.bins)).reshape(nrows, _CTILE)
+    x = Fp[torch.as_tensor(rows, device=device)].reshape(C, S) * rt_d
+    nb_a, nops_a = counts_a(C, S, n_bins, olen, len(np.unique(rows)))
+    a = {"C": C, "max_abs_err": err_a, "err_bound": 3e-5 * scale_a, "ms": device_ms(kern_a),
+         "plain_ms": device_ms(plain_a), "library_ms": device_ms(lambda: torch.matmul(x, E)),
+         **bound_a(nb_a, nops_a), "bytes": nb_a, "ops": nops_a}
+    del x, got, want
+
+    kern_b = lambda: cc.cuda_noise_est(F, sh_d, W, True, m.N, FS)  # noqa: E731
+    plain_b = lambda: estimate_noise_keys(gather_noise_bins(F, sh_d, W, True, m.N),  # noqa: E731
+                                          m.bins, FS)
+    (n0_k, keys_k), (n0_t, keys_t) = kern_b(), plain_b()
+    if not torch.equal(keys_k, keys_t):
+        fail("hf32000 noise keys differ from the plain version")
+    rel_b = float(((n0_k - n0_t).abs() / n0_t.abs()).max())
+    if not rel_b <= 2e-5:
+        fail(f"hf32000 N0 disagrees: max rel err {rel_b}")
+    start = np.clip(np.abs(shifts.astype(np.int64)) - W // 2, 0, m.bins - W) // _CTILE * _CTILE
+    bb = bound_b(*counts_b(C, W, len(np.unique(start[:, None] + np.arange(W)))))
+    energies = gather_noise_bins(F, sh_d, W, True, m.N)
+    i_stat = int(np.floor(0.10 * (W - 1)))
+    b = {"C": C, "keys_equal": True, "max_rel_err": rel_b, "ms": device_ms(kern_b),
+         "plain_ms": device_ms(plain_b, n=5),
+         "library_ms": device_ms(lambda: torch.kthvalue(energies, i_stat + 1, dim=-1)), **bb}
+    return {"channelize": a, "noise_est": b}
 
 
 def check_complex_master(device) -> dict:
@@ -199,7 +327,8 @@ def check_complex_master(device) -> dict:
     F = (rng.standard_normal(master_N) + 1j * rng.standard_normal(master_N)).astype(np.complex64)
     d = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     args = (d(F), d(rt), d(tl), d(sl), d(shifts), d(E), n_bins, olen, False, master_N)
-    got, want = cc.cuda_channelize(*args), tiled_channelize(*args)
+    op = cc.channelize_operand(args[5], n_bins, olen)
+    got, want = cc.cuda_channelize(*args, E_op=op), tiled_channelize(*args)
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if not err < 3e-5 * scale:
@@ -274,10 +403,10 @@ def run_scene(eng, params, device, seed: int = 1) -> dict:
     # with every param tensor and constant left where it was
     g = eng.groups["hf"]
     ptrs = {key: t.data_ptr() for key, t in params["hf"].items() if torch.is_tensor(t)}
-    ptrs["tile_E"] = g.tile_E.data_ptr()
+    ptrs["tile_E"], ptrs["tile_op"] = g.tile_E.data_ptr(), g.tile_op.data_ptr()
     params = eng.retune(params, "hf", k, freqs[k] - 500.0)
     ptrs_after = {key: t.data_ptr() for key, t in params["hf"].items() if torch.is_tensor(t)}
-    ptrs_after["tile_E"] = g.tile_E.data_ptr()
+    ptrs_after["tile_E"], ptrs_after["tile_op"] = g.tile_E.data_ptr(), g.tile_op.data_ptr()
     outs2 = []
     for b in range(10, 16):
         state, out = eng.step(state, params, block(b))
@@ -390,8 +519,15 @@ def device_busy(eng, params, device, out_dir: Path, nblocks: int = 8, seed: int 
     for ev in kern:
         by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / nblocks
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the two kernels' device time per launch inside the step
+    in_step = {}
+    for name, sub in (("channelize", "channelize_kernel"), ("noise_est", "noise_kernel")):
+        evs = [ev for ev in kern if sub in ev.name]
+        in_step[name] = (sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / len(evs)
+                         if evs else None)
     return {"blocks": nblocks, "kernels_per_block": len(kern) / nblocks,
             "busy_ms_per_block": sum(by_name.values()) if kern else None,
+            "kernel_in_step_ms_per_launch": in_step,
             "top_ms_per_block": [[name[:80], ms] for name, ms in top]}
 
 
@@ -439,6 +575,11 @@ def main() -> None:
     emit({"phase": "kernels_vs_plain", "channelize_max_abs_err": kernels[0]["max_abs_err"],
           "channelize_bound": kernels[0]["err_bound"], "noise_keys_equal": True,
           "noise_max_rel_err": kernels[1]["max_rel_err"], "complex_master": cplx})
+    del F
+    big = check_hf32000(device)
+    emit({"phase": "kernels_hf32000", "card": card, **big})
+    for kern in kernels:
+        kern["at_hf32000"] = big[kern["name"]]
 
     # phase 3: known-answer scene through the main path
     sc = run_scene(eng, params, device)
@@ -475,6 +616,8 @@ def main() -> None:
     idle = (None if busy["busy_ms_per_block"] is None
             else 1.0 - busy["busy_ms_per_block"] / tr["ms_per_block"])
     emit({"phase": "stages", "card": card, **split, **busy, "device_idle_share": idle})
+    for kern in kernels:
+        kern["in_step_ms"] = busy["kernel_in_step_ms_per_launch"][kern["name"]]
 
     if "jax" in sys.modules or any(n == "ka9q_radio_tpu" or n.startswith("ka9q_radio_tpu.")
                                    for n in sys.modules):

@@ -11,6 +11,13 @@ The kernels compute what the plain PyTorch versions compute
 gather matmul, no 128-channel runs. Each channel reads its own rows straight
 from device memory, so any layout runs, and there is no run plan to keep.
 
+Kernel A folds the tile frame S -> n (the IDFT constant is periodic in its
+row with period n) and runs the product on the tensor cores as one real
+GEMM in split ("3xTF32") precision; its constant operand, the real-block
+IDFT split into TF32 hi and lo parts in K-major core matrices, is built
+once per group by `channelize_operand` (csrc/channelize.cu says why and
+how).
+
 A wrapper given CPU tensors runs the plain version: that is the CPU path of
 the port. Given CUDA tensors it launches its kernel or raises; it never
 falls back. Each launch adds one to `launches[name]`.
@@ -38,7 +45,7 @@ from .noise import (N_CUTOFF, _quantile_terms, estimate_noise_keys, gather_noise
                     noise_correction, noise_window_fits)
 
 __all__ = ["launches", "reset_launches", "build", "cuda_channelize", "cuda_noise_est",
-           "SOURCES", "REPLACES"]
+           "channelize_operand", "fold_pad", "round_tf32", "SOURCES", "REPLACES"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -49,7 +56,7 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _V, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _KERNELS = {
     "channelize": ("channelize.cu", "ka9q_channelize",
-                   [_V, _LL, _I, _I, _V, _V, _V, _V, _V, _I, _I, _I, _I, _F, _V, _V]),
+                   [_V, _LL, _I, _I, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _V, _V]),
     "noise_est": ("noise_est.cu", "ka9q_noise_est",
                   [_V, _LL, _I, _V, _I, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]),
 }
@@ -58,6 +65,9 @@ REPLACES = {
     "channelize": "ka9q_radio_tpu/ops/pallas_channelize.py:165 (pallas_channelize; pallas_call at :214)",
     "noise_est": "ka9q_radio_tpu/ops/pallas_channelize.py:286 (pallas_noise_est; pallas_call at :324)",
 }
+
+# kernel A's tiling (csrc/channelize.cu): K chunk and column tile
+_KC, _COLS = 32, 64
 
 launches = {name: 0 for name in _KERNELS}
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -136,13 +146,59 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launches[name] += 1
 
 
+def fold_pad(n_bins: int) -> int:
+    """Kernel A's fold length: n_bins rounded up to 16 (its K is 2 fold_pad)."""
+    return -(-n_bins // 16) * 16
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero: what the card's cvt.rna.tf32.f32 gives."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def channelize_operand(E: torch.Tensor, n_bins: int, olen: int) -> torch.Tensor:
+    """Kernel A's constant operand, from the IDFT matrix E [S, olen] c64.
+
+    The real-block form B = [[Er, Ei], [-Ei, Er]] of E[:n_bins], [Kp, Np]
+    with Kp = 2 fold_pad(n_bins) and Np = 2 (olen rounded up to 32) (column
+    2t gives Re Y[t], 2t + 1 Im Y[t]), zero-padded, its rows in 32-row K
+    chunks: rows 32 c + i of chunk c take Re x of fold bin 16 c + i and
+    rows 32 c + 16 + i its Im x (i < 16), so that a run of chunks is a run
+    of fold bins; split into TF32 parts hi = round_tf32(B), lo =
+    round_tf32(B - hi); flattened as the kernel's shared-memory chunks want
+    them: [Np/64 column tiles][Kp/32 K chunks][4 k8 steps][2 column
+    halves][hi, lo][4 groups of 8 columns][2 k halves][8 columns][4 k]: K-major
+    core matrices of 8 columns x 4 k (128 bytes), the tensor cores' B
+    layout without swizzle. float32 on E's device.
+    """
+    n_pad = fold_pad(n_bins)
+    Kp, olen_p = 2 * n_pad, -(-olen // 32) * 32
+    Np = 2 * olen_p
+    e = E[:n_bins]
+    B = torch.zeros((Kp, olen_p, 2), dtype=torch.float32, device=E.device)
+    B[:n_bins, :olen, 0], B[:n_bins, :olen, 1] = e.real, e.imag
+    B[n_pad:n_pad + n_bins, :olen, 0], B[n_pad:n_pad + n_bins, :olen, 1] = -e.imag, e.real
+    # [Re rows | Im rows] -> chunks of 16 Re rows then their 16 Im rows
+    B = B.reshape(2, n_pad // 16, 16, Np).transpose(0, 1).reshape(Kp, Np)
+    hi = round_tf32(B)
+    T = torch.stack([hi, round_tf32(B - hi)], -1)
+    # k = ((ch * 4 + s) * 2 + kh) * 4 + q, n = ((ct * 2 + half) * 4 + grp) * 8 + r
+    T = T.reshape(Kp // _KC, 4, 2, 4, Np // _COLS, 2, 4, 8, 2)  # ch s kh q ct half grp r hl
+    return T.permute(4, 0, 1, 5, 8, 6, 2, 7, 3).contiguous().reshape(-1)
+
+
 def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Tensor,
                     slope: torch.Tensor, shifts: torch.Tensor, E: torch.Tensor,
-                    n_bins: int, olen: int, real_master: bool, master_N: int) -> torch.Tensor:
+                    n_bins: int, olen: int, real_master: bool, master_N: int,
+                    E_op: torch.Tensor | None = None) -> torch.Tensor:
     """Tiled channelizer: [C, olen] complex64 baseband from the master
     spectrum F [m_bins] complex64, the tile params resp_tiles [C, S] c64 and
     tile_lo/slope/shifts [C] int32, and the IDFT matrix E [S, olen] c64.
-    Equals filterbank.tiled_channelize (its plain version)."""
+    Equals filterbank.tiled_channelize (its plain version). E_op is
+    channelize_operand(E, n_bins, olen), the kernel's form of E, which the
+    caller builds once: the kernel needs it, the CPU path does not."""
     if F.device.type == "cpu":
         return tiled_channelize(F, resp_tiles, tile_lo, slope, shifts, E, n_bins, olen,
                                 real_master, master_N)
@@ -158,6 +214,14 @@ def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Te
     for what, t in (("tile_lo", tile_lo), ("slope", slope), ("shifts", shifts)):
         _check(t, what, torch.int32, (C,), dev)
     _check(E, "E", torch.complex64, (S, olen), dev)
+    n_pad = fold_pad(n_bins)
+    if n_bins * n_bins >= 2**31:
+        raise ValueError("the kernel's 32-bit ramp phase needs n_bins^2 < 2^31")
+    if F.data_ptr() % 16 or resp_tiles.data_ptr() % 16:
+        raise ValueError("F and resp_tiles must start on 16-byte boundaries (16-byte loads)")
+    if E_op is None:
+        raise ValueError("the kernel takes the group's E_op = channelize_operand(E, n_bins, olen)")
+    _check(E_op, "E_op", torch.float32, (2 * n_pad * 2 * (-(-olen // 32) * 32) * 2,), dev)
     out = torch.empty((C, olen), dtype=torch.complex64, device=dev)
     if C == 0:
         return out
@@ -165,7 +229,7 @@ def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Te
     w = float(np.float32(2.0 * np.pi / n_bins))
     _launch("channelize", dev, F.data_ptr(), m_bins, nrows, int(real_master),
             resp_tiles.data_ptr(), tile_lo.data_ptr(), slope.data_ptr(), shifts.data_ptr(),
-            E.data_ptr(), C, S, olen, n_bins, w, out.data_ptr())
+            E_op.data_ptr(), C, S, olen, n_bins, n_pad, w, out.data_ptr())
     return out
 
 
@@ -191,6 +255,8 @@ def cuda_noise_est(F: torch.Tensor, shifts: torch.Tensor, nbins: int, real_maste
     dev = F.device
     _check(F, "F", torch.complex64, (m_bins,), dev)
     _check(shifts, "shifts", torch.int32, (C,), dev)
+    if F.data_ptr() % 16:
+        raise ValueError("F must start on a 16-byte boundary (the kernel reads two bins a load)")
     n0 = torch.empty(C, dtype=torch.float32, device=dev)
     keys = torch.empty((C, 2), dtype=torch.int32, device=dev)
     if C == 0:

@@ -40,7 +40,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..ops.cuda_channelize import cuda_channelize, cuda_noise_est
+from ..ops.cuda_channelize import channelize_operand, cuda_channelize, cuda_noise_est
 from ..ops.filter_design import design_bandpass_response, response_to_device_order
 from ..ops.filterbank import (
     _CTILE,
@@ -242,6 +242,8 @@ class _Group:
                 raise _later("per-element noise windows (small or odd masters)")
             self.tile_E = torch.as_tensor(tiled_idft_matrix(self.n_bins, self.olen, S),
                                           device=device)
+            # the channelizer kernel's form of tile_E (split real-block GEMM operand)
+            self.tile_op = channelize_operand(self.tile_E, self.n_bins, self.olen)
         self.params = self._build_params()
 
     # -- retunable params ---------------------------------------------------
@@ -381,7 +383,8 @@ class _Group:
         """Master spectrum F -> [C, olen] baseband (pre fine-tune)."""
         m = self.master
         return cuda_channelize(F, params["resp_tiles"], params["tile_lo"], params["slope"],
-                               params["shifts"], self.tile_E, self.n_bins, self.olen, m.real, m.N)
+                               params["shifts"], self.tile_E, self.n_bins, self.olen, m.real, m.N,
+                               E_op=self.tile_op)
 
     def _noise_est(self, params, F):
         """N0 estimate from the master bins around each channel."""

@@ -27,11 +27,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ladder(real_master: bool, C: int = 256, seed: int = 0):
+def _ladder(real_master: bool, C: int = 256, seed: int = 0, n_bins: int = 256, olen: int = 200):
     rng = np.random.default_rng(seed)
     master_N = 65_536
     m_bins = master_N // 2 + 1 if real_master else master_N
-    n_bins, olen = 256, 200
     r = design_bandpass_response(n_bins, olen, 50 / 12e3, 3e3 / 12e3, 11.0, real_master, master_N)
     resp = (r[None, :] * np.exp(1j * rng.uniform(0, 2 * np.pi, (C, 1)))).astype(np.complex64)
     shifts = (np.linspace(-8000, 20_000, C) if real_master
@@ -46,8 +45,9 @@ def _ladder(real_master: bool, C: int = 256, seed: int = 0):
 def test_channelize_kernel_matches_plain(cuda, real_master):
     arrays, geo = _ladder(real_master)
     args = [torch.as_tensor(a, device=cuda) for a in arrays]
+    op = tcc.channelize_operand(args[5], geo[0], geo[1])
     n = tcc.launches["channelize"]
-    got = tcc.cuda_channelize(*args, *geo)
+    got = tcc.cuda_channelize(*args, *geo, E_op=op)
     want = tfb.tiled_channelize(*args, *geo)
     torch.cuda.synchronize()
     assert tcc.launches["channelize"] == n + 1
@@ -67,6 +67,53 @@ def test_noise_kernel_matches_plain(cuda, real_master):
     torch.testing.assert_close(n0_k, n0_t, rtol=2e-5, atol=0)
 
 
+@pytest.mark.parametrize("real_master", [True, False])
+@pytest.mark.parametrize("n_bins,olen,C", [(100, 80, 256), (301, 241, 256), (300, 240, 257),
+                                            (600, 480, 100), (1200, 960, 40), (1400, 1120, 40),
+                                            (2100, 1680, 24)])
+def test_channelize_kernel_geometries(cuda, real_master, n_bins, olen, C):
+    """A frame more than twice the slice (S = 256 > 2 n: the fold adds three
+    terms), an odd n, C = 257 (no multiple of any row tile), slices wide
+    enough that a CTA holds 32 and 16 channels, and slices too wide for a
+    whole 16-row X tile (n > 1296: the kernel takes it in two K segments),
+    up to about the widest the engine puts on this path; two launches give
+    the same bits."""
+    arrays, geo = _ladder(real_master, C=C, seed=n_bins, n_bins=n_bins, olen=olen)
+    args = [torch.as_tensor(a, device=cuda) for a in arrays]
+    op = tcc.channelize_operand(args[5], n_bins, olen)
+    got = tcc.cuda_channelize(*args, *geo, E_op=op)
+    again = tcc.cuda_channelize(*args, *geo, E_op=op)
+    want = tfb.tiled_channelize(*args, *geo)
+    torch.cuda.synchronize()
+    assert got.shape == (C, olen) and torch.equal(got, again)
+    assert float((got - want).abs().max()) < 3e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("W", [128, 1024, 4096])
+def test_noise_kernel_windows(cuda, W):
+    """W = 128 (registers, 4 keys a lane), 1024 (32) and 4096 (shared
+    memory), C = 257, with an all-zero window, a window of equal energies
+    and one of heavy ties: keys exact, N0 within rtol 2e-5."""
+    rng = np.random.default_rng(W)
+    master_N = 131_072
+    m_bins = master_N // 2 + 1
+    F = (rng.standard_normal(m_bins) + 1j * rng.standard_normal(m_bins)).astype(np.complex64)
+    F[: 2 * W] = 0.0  # channel 0's window
+    F[8 * W: 10 * W] = np.complex64(0.3 + 0.4j)  # channel 1's
+    F[12 * W: 14 * W] = np.round(F[12 * W: 14 * W] * 4) / 4  # ties
+    shifts = np.linspace(W, m_bins - W, 257).astype(np.int32)
+    shifts[:3] = [W // 2, 9 * W, -13 * W]
+    F, shifts = torch.as_tensor(F, device=cuda), torch.as_tensor(shifts, device=cuda)
+    n0_k, keys_k = tcc.cuda_noise_est(F, shifts, W, True, master_N, 1e6)
+    energies = tnz.gather_noise_bins(F, shifts, W, True, master_N)
+    n0_t, keys_t = tnz.estimate_noise_keys(energies, m_bins, 1e6)
+    torch.cuda.synchronize()
+    assert int(energies[0].count_nonzero()) == 0 and bool((energies[1] == energies[1, 0]).all())
+    assert torch.equal(keys_k, keys_t)
+    assert float(n0_k[0]) == 0.0
+    torch.testing.assert_close(n0_k, n0_t, rtol=2e-5, atol=0)
+
+
 def test_wrappers_refuse_bad_tensors(cuda):
     arrays, geo = _ladder(True, C=8)
     args = [torch.as_tensor(a, device=cuda) for a in arrays]
@@ -76,6 +123,9 @@ def test_wrappers_refuse_bad_tensors(cuda):
     args = [torch.as_tensor(a, device=cuda) for a in arrays]
     args[2] = args[2].long()
     with pytest.raises(TypeError, match="dtype"):
+        tcc.cuda_channelize(*args, *geo)
+    args = [torch.as_tensor(a, device=cuda) for a in arrays]
+    with pytest.raises(ValueError, match="E_op"):  # the kernel's operand is the caller's
         tcc.cuda_channelize(*args, *geo)
 
 
