@@ -14,9 +14,15 @@ yardstick), drives the rx888 configuration (129.6 Msps real input, 1,000
 SSB channels at 12 kHz with SNR squelch, a 16-channel wide spectrum sweep)
 through Engine.step on a known-answer scene, times 64 distinct random
 blocks, and splits the block time by stage and by kernel (CUDA events,
-torch.profiler), with each kernel's device time inside the step. Each
-phase prints one JSON line; the kernels line and the card's `nvidia-smi`
-name and power limit come before the last line, which is
+torch.profiler), with each kernel's device time inside the step. Then it
+runs the daemon (Radiod) on the card at full width: the
+examples/radiod@rx888-wspr.conf HF farm (about 32,700 usb channels with SNR
+squelch, egress-slots 512, time-shards 8, the native edge) fed by a
+sig_gen carrier, its RTP received on a local UDP socket, a retune command
+fed through Radiod.handle_packet, and both kernels checked, timed and
+counted at the daemon's own shapes. Each phase prints one JSON line; the
+kernels line and the card's `nvidia-smi` name and power limit come before
+the last line, which is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Long logs
 go to chiprun_out/. It imports nothing of JAX.
 """
@@ -97,14 +103,17 @@ def device_ms(fn, n: int = 20, warm_s: float = 0.05, name: str = "") -> float:
     while time.perf_counter() < t_end:
         fn()
         torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and name in ev.name]
-    if not evs:
-        fail(f"the profiler recorded no device time (kernel name {name!r})")
-    return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / n
+    for attempt in range(3):  # a profiler session now and then records nothing
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and name in ev.name]
+        if evs:
+            return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / n
+        print(f"chip_smoke: profiler session {attempt + 1} recorded no device time "
+              f"(kernel name {name!r})", file=sys.stderr, flush=True)
+    fail(f"the profiler recorded no device time (kernel name {name!r})")
 
 
 def bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
@@ -531,6 +540,308 @@ def device_busy(eng, params, device, out_dir: Path, nblocks: int = 8, seed: int 
             "top_ms_per_block": [[name[:80], ms] for name, ms in top]}
 
 
+WSPR_CONF = ROOT / "examples" / "radiod@rx888-wspr.conf"
+DAEMON_K = 6334  # raster channel of the daemon's carrier: 2.6 MHz + k * 1.815 kHz
+DAEMON_OPEN = 320  # channels the daemon's busy run opens, under egress-slots = 512
+# their tones' level: ~20 dB SNR in the channel. At the carrier's -60 dBFS a
+# tone also opens its neighbours on the 1.815 kHz raster (the USB passband is
+# wider than the pitch): 320 such tones opened 862-961 channels.
+DAEMON_TONE_DBFS = -80.0
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def daemon_config(dport: int, sport: int) -> tuple[str, list[str], float]:
+    """examples/radiod@rx888-wspr.conf with the changes listed in `reduced`:
+    a sig_gen front end at the same rate with a carrier 1,500 Hz above one
+    raster channel's dial and a noise floor, and the streams on local ports.
+    Returns (config text, reduced, carrier's channel dial)."""
+    import re
+
+    text = WSPR_CONF.read_text()
+    dial = 2_600_000 + DAEMON_K * 1_815
+    adc = ("[adc]\ndevice = sig_gen\nsamprate = 129m6\nreal = yes\n"
+           f"carrier = {dial + 1500}\namplitude = -60\nn0 = -138\n\n")
+    text, n = re.subn(r"\[adc\].*?(?=\n\[hf\])", adc, text, flags=re.S)
+    if n != 1:
+        fail("the daemon config's [adc] section was not found")
+    text = text.replace("status = hffarm.local", f"status = 127.0.0.1:{sport}")
+    text = text.replace("data = hffarm-pcm.local", f"data = 127.0.0.1:{dport}")
+    text = text.replace("[global]\n", "[global]\nsap = no\nadvertise = no\n", 1)
+    reduced = [
+        "[adc]: device = rtp (the SDR host's 129.6 Msps s16be stream) -> device = sig_gen at "
+        f"samprate 129m6, real = yes: carrier {dial + 1500} Hz (raster channel {DAEMON_K}'s dial "
+        "+ 1,500 Hz) at -60 dBFS, noise density -138 dBFS/Hz",
+        f"data, status: hffarm-pcm.local, hffarm.local -> 127.0.0.1:{dport}, 127.0.0.1:{sport}",
+        "sap = no, advertise = no: no SAP or mDNS announcements (the run has no network)",
+    ]
+    return text, reduced, float(dial)
+
+
+def run_daemon(card: str, device) -> tuple[dict, dict]:
+    """The daemon at full width on the card: warm-up, ~256 blocks flat out
+    while the carrier's RTP is received, a +500 Hz retune command through
+    handle_packet, 64 more blocks; then a profiled dispatch (each kernel's
+    time inside the daemon) and both kernels against their plain versions
+    at the daemon's shapes. Returns (the phase's JSON, per-kernel data)."""
+    import select
+    import socket
+
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, encode_status
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    dport, sport = _free_port(), _free_port()
+    text, reduced, dial = daemon_config(dport, sport)
+    cfg = load_config(text)
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+    rx.bind(("127.0.0.1", dport))
+    rx.setblocking(False)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    rd = Radiod(cfg, use_network=True, data_port=dport, status_port=sport)
+    t_init = time.perf_counter() - t0
+    g = rd.engine.groups["hf"]
+    ch = next(c for c in rd.chans.values() if c.group == "hf" and c.idx == DAEMON_K)
+    if ch.freq != dial:
+        fail(f"raster channel {DAEMON_K} is at {ch.freq} Hz, want {dial}")
+    if "hf" not in rd.edges:
+        fail("the daemon's native edge did not come up")
+    D = rd._time_shards
+    pkts: list[tuple[int, bytes]] = []  # (seq, payload) of the carrier's channel
+    others: set[int] = set()
+    max_count = [0]
+
+    def drain(keep: bool):
+        while select.select([rx], [], [], 0)[0]:
+            pkt = rx.recv(65536)
+            h, payload = RtpHeader.unpack(pkt)
+            if h.ssrc != ch.ssrc:
+                others.add(h.ssrc)
+            elif keep:
+                pkts.append((h.seq, payload))
+
+    def dispatch(keep: bool):
+        rd.step_block()
+        info = rd._ginfo["hf"]
+        max_count[0] = max(max_count[0], int(np.max(info._cache["egress_count"])))
+        drain(keep)
+
+    def tone(n_dispatches: int) -> tuple[float, int]:
+        pkts.clear()
+        for _ in range(n_dispatches):
+            dispatch(True)
+        audio = np.concatenate([np.frombuffer(p, ">i2") for _, p in sorted(pkts)])
+        return peak_hz(audio.astype(np.float64), g.spec.samprate), audio.size
+
+    # the host's share of a block: the generator's and the step's enqueue,
+    # the device->host copy (it waits for the device's unfinished work) and
+    # the per-block emission (RTP, beacons, lifetimes)
+    parts = {"siggen_enqueue": "_siggen", "step_enqueue": "step", "d2h_sync": "_fetch_out",
+             "finish_block": "_finish_block"}
+
+    def timed_run(body) -> tuple:
+        """body() with each part of the host's block timed and the block-time
+        ring emptied first; returns (body's result, the run's block times)."""
+        split = dict.fromkeys(parts, 0.0)
+        orig = {k: getattr(rd, a) for k, a in parts.items()}
+
+        def wrap(k):
+            fn = orig[k]
+
+            def wrapped(*args):
+                t = time.perf_counter()
+                r = fn(*args)
+                split[k] += time.perf_counter() - t
+                return r
+            return wrapped
+
+        for k, a in parts.items():
+            setattr(rd, a, wrap(k))
+        rd._t_n = 0
+        b0 = rd.blocks
+        t0 = time.perf_counter()
+        res = body()
+        elapsed = time.perf_counter() - t0
+        for k, a in parts.items():
+            setattr(rd, a, orig[k])
+        blocks = rd.blocks - b0
+        host_split = {k: v * 1e3 / blocks for k, v in split.items()}
+        host_split["other"] = elapsed * 1e3 / blocks - sum(host_split.values())
+        p50, p99 = rd.latency_percentiles()
+        return res, {"blocks": blocks, "dispatches": blocks // D, "p50_ms": p50 * 1e3,
+                     "p99_ms": p99 * 1e3, "mean_ms": elapsed * 1e3 / blocks,
+                     "host_split_ms_per_block": host_split,
+                     "realtime_factor": rd.cfg.blocktime / p50 if p50 else None,
+                     "msps": blocks * rd.engine.L / elapsed / 1e6}
+
+    for _ in range(4):  # warm-up: the first dispatch plans cuFFT, the AGC starts
+        dispatch(False)
+    cc.reset_launches()
+    j0, b0 = rd.state["host"]["jobnum"], rd.blocks
+    (peak1, n1), one = timed_run(lambda: tone(32))
+    blocks = one["blocks"]
+    rd.handle_packet(encode_status({T.OUTPUT_SSRC: ch.ssrc, T.COMMAND_TAG: 1,
+                                    T.RADIO_FREQUENCY: dial + 500.0}, cmd=True))
+    peak2, n2 = tone(8)
+    launches = dict(cc.launches)
+    due = sum(1 for b in range(j0, rd.state["host"]["jobnum"])
+              if b % rd.engine.noise_every == 0)
+    send_k = bool(rd._ginfo["hf"]["send"][ch.idx])
+    edge = rd.edges["hf"][0]
+    out = {"phase": "daemon", "card": card, "config": str(WSPR_CONF.relative_to(ROOT)),
+           "reduced": reduced, "channels": g.C, "egress_slots": g.spec.egress_slots,
+           "time_shards": D, "init_s": t_init, "open_channels": "one (the carrier's)",
+           **one, "packets_sent": edge.packets,
+           "peak_device_mb": torch.cuda.max_memory_allocated(device) / 2**20,
+           "carrier_ssrc": ch.ssrc, "carrier_send": send_k, "tone_hz": peak1,
+           "tone_samples": int(n1), "retune_tone_hz": peak2, "retune_samples": int(n2),
+           "egress_count_max": max_count[0], "egress_overflows": rd.egress_overflows,
+           "block_drops": rd.block_drops, "other_ssrcs_heard": sorted(others)[:20],
+           "launches": launches, "due_blocks": due}
+    if abs(peak1 - 1500.0) > 10.0:
+        fail(f"daemon: the carrier's channel peaks at {peak1} Hz, want 1500")
+    if not send_k or n1 == 0:
+        fail("daemon: the carrier's channel did not open its squelch")
+    if abs(peak2 - 1000.0) > 10.0:
+        fail(f"daemon: after the +500 Hz retune the tone is at {peak2} Hz, want 1000")
+    if rd.egress_overflows or rd.block_drops or max_count[0] >= g.spec.egress_slots // 4:
+        fail(f"daemon: overflows {rd.egress_overflows}, drops {rd.block_drops}, "
+             f"egress count up to {max_count[0]} of {g.spec.egress_slots}")
+    if launches["channelize"] != blocks + 8 * D or launches["noise_est"] != due:
+        fail(f"daemon: launch counts {launches}, want channelize {blocks + 8 * D}, "
+             f"noise_est {due}")
+
+    # the same farm with a realistic open fraction: DAEMON_OPEN more raster
+    # channels each carry a weak tone near 1,500 Hz above their dial, added to the
+    # generator's carrier and noise. Each tone is a whole number of cycles a
+    # block (a multiple of 50 Hz), so one device block repeats without a
+    # phase step.
+    from ka9q_radio_tpu_torch.runtime.source import multi_tone_block
+
+    ks = [k for k in np.linspace(0, g.C - 1, DAEMON_OPEN + 1).astype(int) if k != DAEMON_K]
+    ks = ks[:DAEMON_OPEN]
+    freqs = np.round((2_600_000 + np.asarray(ks) * 1_815 + 1500) / 50.0) * 50.0
+    tones = torch.zeros(rd.engine.L, device=device)
+    for i in range(0, len(ks), 32):  # 32 carriers at a time: [32, L] complex ramps
+        st = {"phase": torch.zeros(len(freqs[i:i + 32]), dtype=torch.int32, device=device)}
+        amps = np.full(len(freqs[i:i + 32]), 10.0 ** (DAEMON_TONE_DBFS / 20.0))
+        tones += multi_tone_block(st, freqs[i:i + 32], amps,
+                                  rd.engine.samprate, rd.engine.L)[1]
+    carrier_gen = rd._siggen
+
+    def with_tones(st_):
+        st_, blocks_ = carrier_gen(st_)
+        return st_, blocks_ + tones
+
+    rd._siggen = with_tones
+    counts = []
+
+    def many(n_dispatches: int):
+        for _ in range(n_dispatches):
+            rd.step_block()
+            counts.extend(int(c) for c in np.atleast_1d(rd._ginfo["hf"]._cache["egress_count"]))
+            drain(False)
+
+    p0 = edge.packets
+    many(2)  # the new channels open their squelch
+    counts.clear()
+    _, busy_run = timed_run(lambda: many(32))
+    opened = sum(bool(rd._ginfo["hf"]["send"][k]) for k in ks)
+    out["open_many"] = {"tone_channels": len(ks), "tone_dbfs": DAEMON_TONE_DBFS, **busy_run,
+                        "egress_count_min": min(counts), "egress_count_max": max(counts),
+                        "tone_channels_open_last_block": opened,
+                        "packets_sent": edge.packets - p0,
+                        "peak_device_mb": torch.cuda.max_memory_allocated(device) / 2**20}
+    if opened != len(ks) or min(counts) < len(ks) or max(counts) >= g.spec.egress_slots:
+        fail(f"daemon: {opened} of {len(ks)} tone channels open, egress count "
+             f"{min(counts)}..{max(counts)} of {g.spec.egress_slots}")
+    if rd.egress_overflows or rd.block_drops:
+        fail(f"daemon: overflows {rd.egress_overflows}, drops {rd.block_drops} "
+             f"with {len(ks)} channels open")
+
+    # where the host's time goes with those channels open: cProfile over 4
+    # dispatches (its overhead inflates every entry alike), the top functions
+    # by own time, per block
+    import cProfile
+    import io
+    import pstats
+
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    for _ in range(4):
+        rd.step_block()
+    prof_host.disable()
+    buf = io.StringIO()
+    st = pstats.Stats(prof_host, stream=buf).sort_stats("tottime")
+    st.print_stats(25)
+    (ROOT / "chiprun_out" / "daemon_host_profile.txt").write_text(buf.getvalue())
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:10]
+    out["host_profile_top_ms_per_block"] = [
+        [f"{fn[0].rsplit('/', 1)[-1]}:{fn[1]}({fn[2]})", v[2] * 1e3 / (4 * D),
+         v[3] * 1e3 / (4 * D)] for fn, v in top]
+
+    # each kernel's device time inside the daemon, with those channels open
+    # (profiler, two dispatches)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):  # a profiler session now and then records nothing
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                rd.step_block()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if kern:
+            break
+    else:
+        fail("daemon: the profiler recorded no device time")
+    busy = sum(ev.time_range.elapsed_us() for ev in kern) / 1e3
+    in_daemon = {}
+    for name, sub in (("channelize", "channelize_kernel"), ("noise_est", "noise_kernel")):
+        evs = [ev for ev in kern if sub in ev.name]
+        in_daemon[name] = (sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / len(evs)
+                           if evs else None)
+    out.update({"profiled_blocks": 2 * D, "device_busy_ms_per_block": busy / (2 * D),
+                "wall_ms_per_block_profiled": wall / (2 * D),
+                "device_idle_share": 1.0 - busy / wall, "kernel_in_daemon_ms": in_daemon})
+    rx.close()
+
+    # both kernels against their plain versions at the daemon's shapes
+    blk = float(np.sqrt(1.585e-14 * rd.engine.samprate / 2.0)) * torch.randn(
+        rd.engine.L, generator=torch.Generator(device=device).manual_seed(6), device=device)
+    _, F = master_fft(rd.engine.master, rd.engine.init_state()["master"], blk)
+    at = {k["name"]: k for k in check_kernels(rd.engine, rd.params, F)}
+    per_kernel = {}
+    for name in ("channelize", "noise_est"):
+        k = at[name]
+        per_kernel[name] = {
+            "C": g.C, "launches": launches[name], "in_daemon_ms": in_daemon[name],
+            **{key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "max_abs_err") if key in k},
+            **({"max_rel_err": k["max_rel_err"]} if "max_rel_err" in k else {}),
+            **({"err_bound": k["err_bound"]} if "err_bound" in k else {})}
+    out["kernels_at_daemon"] = per_kernel
+    for edge_, _ in rd.edges.values():
+        edge_.close()
+    return out, per_kernel
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -618,6 +929,13 @@ def main() -> None:
     emit({"phase": "stages", "card": card, **split, **busy, "device_idle_share": idle})
     for kern in kernels:
         kern["in_step_ms"] = busy["kernel_in_step_ms_per_launch"][kern["name"]]
+
+    # phase 5: the daemon at full width (the port's Radiod over its Engine)
+    dmn, at_daemon = run_daemon(card, device)
+    emit(dmn)
+    for kern in kernels:
+        kern["daemon_launches"] = at_daemon[kern["name"]]["launches"]
+        kern["at_daemon"] = at_daemon[kern["name"]]
 
     if "jax" in sys.modules or any(n == "ka9q_radio_tpu" or n.startswith("ka9q_radio_tpu.")
                                    for n in sys.modules):

@@ -27,10 +27,14 @@ Per-block per-group pipeline (downconvert(), radio.c:1451-1562):
   -> linear (SSB) demodulator; or, for a wide spectrum group, windowed FFTs
      of the raw block averaged into bins.
 
-This slice runs one device and one input: the linear SSB path and the wide
-spectrum. FM/WFM, PLL/envelope/stereo linear, the narrowband spectrum,
-filter2/ISB, beamforming, egress compaction, spur notches, multiple inputs
-and meshes are later slices and raise NotImplementedError.
+This port runs one device and one input: the linear SSB path with
+squelch-gated egress compaction, the wide spectrum, and the daemon's table
+surgery (retune and set_edges write rows in place; adopt_host_params and
+migrate_state carry a rebuilt channel table's params and state), with
+adaptive spur notches on the master bins. FM/WFM, PLL/envelope/stereo
+linear, the narrowband spectrum, filter2/ISB, beamforming and multiple
+inputs are later slices and raise NotImplementedError (the daemon refuses
+mesh = yes, another later slice).
 """
 from __future__ import annotations
 
@@ -61,7 +65,7 @@ from ..models.spectrum import wide_accumulate, wide_constants, wide_extract, wid
 from ..utils.device import resolve_device, to_tensors
 from ..utils.units import dB_to_power, dB_to_voltage
 
-__all__ = ["ChannelSpec", "GroupSpec", "Engine", "DEFAULTS"]
+__all__ = ["ChannelSpec", "GroupSpec", "Engine", "DEFAULTS", "check_spec", "migrate_state"]
 
 # Reference compiled defaults (modes.c:33-62)
 DEFAULTS = dict(
@@ -179,6 +183,35 @@ def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is a later slice of the port")
 
 
+# where each part the port does not carry yet is ported (ROADMAP Queue 1)
+_SLICES = {
+    "fm": "item 13 (FM)", "wfm": "item 14 (WFM)",
+    "linear": "item 11 (PLL/envelope/stereo linear)",
+    "filter2": "item 14 (the filter2/ISB cascade)", "beam": "item 15 (beamforming)",
+    "narrowband": "item 12 (the narrowband spectrum)", "inputs": "item 16 (multi-input)",
+}
+
+
+def check_spec(spec: GroupSpec) -> None:
+    """Raise NotImplementedError, naming the later slice, for a group this
+    port does not carry yet (the daemon refuses such a command up front)."""
+    if spec.demod not in ("linear", "spectrum"):
+        raise _later(f"the {spec.demod} demodulator, ROADMAP {_SLICES.get(spec.demod, 'Queue 1')},")
+    if spec.demod == "linear":
+        try:
+            check_linear_flags(spec.enable_pll, spec.envelope, spec.stereo)
+        except NotImplementedError as e:
+            raise NotImplementedError(f"{e}, ROADMAP {_SLICES['linear']}") from None
+    if spec.filter2 > 0 or spec.isb:
+        raise _later(f"the filter2/ISB cascade, ROADMAP {_SLICES['filter2']},")
+    if spec.beam:
+        raise _later(f"beamforming, ROADMAP {_SLICES['beam']},")
+    if spec.demod == "spectrum" and spec.bin_bw < spec.crossover:
+        raise _later(f"the narrowband spectrum, ROADMAP {_SLICES['narrowband']},")
+    if spec.input != 0 or any(c.input not in (None, 0) for c in spec.channels):
+        raise _later(f"multi-input, ROADMAP {_SLICES['inputs']},")
+
+
 class _Group:
     """Host-side geometry, host mirrors and device params of one GroupSpec."""
 
@@ -190,18 +223,7 @@ class _Group:
         self.blocktime = blocktime
         self.center = float(center)
         self.device = device
-        if spec.demod not in ("linear", "spectrum"):
-            raise _later(f"the {spec.demod} demodulator")
-        if spec.demod == "linear":
-            check_linear_flags(spec.enable_pll, spec.envelope, spec.stereo)
-        if spec.filter2 > 0 or spec.isb:
-            raise _later("the filter2/ISB cascade")
-        if spec.beam:
-            raise _later("beamforming")
-        if spec.egress_slots:
-            raise _later("egress compaction (the daemon)")
-        if spec.input != 0 or any(c.input not in (None, 0) for c in spec.channels):
-            raise _later("multi-input")
+        check_spec(spec)
         r = int(spec.samprate)
         fs = int(round(samprate))
         N, L = master.N, master.L
@@ -220,12 +242,10 @@ class _Group:
         # with the EMA coefficient compounded to keep the time constant
         self.noise_every = max(1, int(noise_every))
         self.noise_alpha = float(1.0 - (1.0 - POWER_ALPHA) ** self.noise_every)
-        self.spectrum_wide = False
-        if spec.demod == "spectrum":
-            # algorithm crossover (spectrum.c, modes.c:69)
-            self.spectrum_wide = spec.bin_bw >= spec.crossover
-            if not self.spectrum_wide:
-                raise _later("the narrowband spectrum")
+        # spectrum groups take the wide algorithm (spectrum.c, modes.c:69):
+        # check_spec refuses the narrowband one
+        self.spectrum_wide = spec.demod == "spectrum"
+        if self.spectrum_wide:
             self.wide_geo = wide_geometry(
                 self.fs_in, master.L, master.real, spec.bin_bw, spec.spectrum_window,
                 spec.spectrum_window_param, spec.fft_avg, spec.spectrum_overlap)
@@ -261,11 +281,12 @@ class _Group:
             adjs[i] = block_phase_adjust_q32(shift, L, N)
         return shifts, incs, adjs
 
-    def _design_main(self, low: float, high: float) -> np.ndarray:
+    def _design_main(self, low: float, high: float, kaiser_beta: float | None = None) -> np.ndarray:
         r = self.spec.samprate
         lo, hi = min(low, high), max(low, high)
+        beta = kaiser_beta if kaiser_beta is not None else self.spec.kaiser_beta
         return response_to_device_order(design_bandpass_response(
-            self.n_bins, self.olen, lo / r, hi / r, kaiser_beta=self.spec.kaiser_beta,
+            self.n_bins, self.olen, lo / r, hi / r, kaiser_beta=beta,
             real_master=self.master.real, master_points=self.master.N))
 
     def _build_params(self) -> dict[str, Any]:
@@ -296,6 +317,7 @@ class _Group:
             # poll-gating flag (spectrum.c:161-186): 1 = accumulate this block
             p["armed"] = np.float32(1.0)
             p["demod"] = {}
+            self.pristine_demod = {}
         else:
             g_sq_open = opt("squelch_open_db", "squelch_open_db")
             g_sq_close = opt("squelch_close_db", "squelch_close_db")
@@ -324,6 +346,8 @@ class _Group:
                 "dc_tau": f32(np.full(C, -np.expm1(-2.0 * np.pi * spec.dc_cut_hz / r)
                                       if spec.dc_cut_hz > 0 else 0.0)),
             }
+            # build-time demod defaults: a freed dynamic slot is restored from these
+            self.pristine_demod = {k: np.copy(v) for k, v in p["demod"].items()}
         self.host = p  # authoritative numpy mirrors for host-side surgery
         return to_tensors(p, self.device)
 
@@ -356,6 +380,32 @@ class _Group:
         for k in keys:
             params[k][idx] = int(h[k][idx])
         return params
+
+    def set_edges(self, params: dict[str, Any], idx: int, low: float, high: float,
+                  kaiser_beta: float | None = None) -> dict[str, Any]:
+        """Redesign channel idx's filter (set_filter, filter.c:934-1007): host
+        design, then the channel's rows of the responses, the tile-frame
+        responses and the bandwidth written into the params in place.
+        Returns `params` itself."""
+        h = self.host
+        h["responses"][idx] = self._design_main(low, high, kaiser_beta)
+        params["responses"][idx].copy_(torch.from_numpy(h["responses"][idx]))
+        if self.tiled:
+            self._refresh_tile_row(idx)
+            params["resp_tiles"][idx].copy_(torch.from_numpy(h["resp_tiles"][idx]))
+        if "bandwidth" in h["demod"]:
+            self.set_demod(params, idx, "bandwidth", abs(high - low))
+        return params
+
+    def set_demod(self, params: dict[str, Any], idx: int, key: str, value) -> bool:
+        """Write one channel's demod param (host mirror and device row in
+        place). Returns False where the group has no such key."""
+        d = self.host["demod"]
+        if key not in d:
+            return False
+        d[key][idx] = value
+        params["demod"][key][idx] = d[key][idx].item()
+        return True
 
     def set_armed(self, params: dict[str, Any], armed: bool) -> dict[str, Any]:
         """Arm or disarm a spectrum group's accumulation (the daemon's poll
@@ -438,9 +488,29 @@ class _Group:
             samprate=spec.samprate, blocktime=self.blocktime)
         info["baseband_power"] = bb_power
         info["n0"] = n0
+        if spec.egress_slots and audio.shape[1] > 0:
+            audio = self._compact(audio, info)
         new_dc = {"acc_q32": acc, "n0": n0,
                   "warmup": torch.clamp(state["dc"]["warmup"] - 1, min=0)}
         return {"dc": new_dc, "demod": demod_state}, audio, info
+
+    def _compact(self, audio, info):
+        """Squelch-gated egress compaction (audio.c:42-110): the open
+        channels' audio rows, in channel order, into K = egress_slots rows,
+        with egress_idx [K] (channel of each row, -1 past the count) and
+        egress_count (open channels; above K means the extras were dropped
+        this block). No device->host sync: muted and overflowing channels
+        scatter into a dump slot K, which is then sliced off."""
+        K = min(int(self.spec.egress_slots), self.C)
+        act = info["send"].to(torch.int32)
+        pos = torch.cumsum(act, 0) - 1
+        slot = torch.where(info["send"], torch.clamp(pos, max=K), K).to(torch.int64)
+        idx = torch.full((K + 1,), -1, dtype=torch.int32, device=audio.device)
+        idx.scatter_(0, slot, torch.arange(self.C, dtype=torch.int32, device=audio.device))
+        idx = idx[:K]
+        info["egress_idx"] = idx
+        info["egress_count"] = act.sum(dtype=torch.int32)
+        return audio.index_select(0, torch.clamp(idx, min=0).to(torch.int64))
 
 
 class Engine:
@@ -457,7 +527,29 @@ class Engine:
 
     def __init__(self, samprate: float, groups: Sequence[GroupSpec], real: bool = True,
                  blocktime: float = 0.02, overlap: int = 5, center: float = 0.0,
-                 noise_every: int = 4, device=None):
+                 noise_every: int = 4, spurs: Sequence[float] | None = None,
+                 fft: str = "auto", fft_precision: str = "high", use_matmul: bool = False,
+                 device=None):
+        """The JAX engine's keywords, where this port has their mechanism.
+        fft "auto" or "monolithic" and fft_precision "high" or "exact" run
+        cuFFT in FP32 (torch.fft); the MXU cascade and four-step split
+        (fft "mxu"/"split"), its bf16 tier and the MXU matmul channelizer
+        (use_matmul) are TPU mechanisms and raise. spurs: RF frequencies to
+        notch adaptively on the master bins (DC always with them)."""
+        fft, fft_precision = str(fft).lower(), str(fft_precision).lower()
+        if fft in ("mxu", "split"):
+            raise ValueError(f"fft={fft!r} picks the TPU's matmul-cascade master FFT; the port's "
+                             "master FFT is cuFFT (use fft=auto)")
+        if fft not in ("auto", "monolithic"):
+            raise ValueError(f"fft={fft!r}: expected auto|monolithic")
+        if fft_precision == "bf16":
+            raise ValueError("fft_precision='bf16' is a precision tier of the TPU's matmul "
+                             "cascade; the port's cuFFT runs in FP32 (use high or exact)")
+        if fft_precision not in ("high", "exact"):
+            raise ValueError(f"fft_precision={fft_precision!r}: expected high|exact")
+        if use_matmul:
+            raise ValueError("use_matmul (matmul = yes) picks the TPU's MXU matmul channelizer; "
+                             "the port's channelizer is its CUDA kernel")
         self.device = resolve_device(device)
         self.master = MasterConfig.from_rate(samprate, blocktime, overlap, real)
         self.samprate = float(samprate)
@@ -470,6 +562,18 @@ class Engine:
         self.groups = {g.name: _Group(g, self.master, self.samprate, blocktime, self.center,
                                       self.noise_every, self.device)
                        for g in groups}
+        # adaptive spur notches on master bins (radio.c:662-683,
+        # filter.c:441-453): per spur, a slow complex one-pole tracks the
+        # coherent bin value and subtracts it; DC always included
+        self.spur_bins = None
+        if spurs:
+            bins = [0]
+            for f in spurs:
+                shift, _rem, ok = compute_tuning(self.master.N, self.samprate, abs(float(f)))
+                if ok and abs(shift) < self.master.bins and shift not in bins:
+                    bins.append(abs(shift))
+            self.spur_bins = np.asarray(sorted(set(bins)), np.int32)
+            self._spur_idx = torch.as_tensor(self.spur_bins.astype(np.int64), device=self.device)
 
     @property
     def L(self) -> int:
@@ -480,12 +584,15 @@ class Engine:
         return [g.spec for g in self.groups.values()]
 
     def init_state(self):
-        return {
+        st = {
             "master": master_init(self.master, device=self.device),
             "groups": {n: g.init_state() for n, g in self.groups.items()},
             "host": {"jobnum": 0,
                      "groups": {n: {"warmup": 2, "frames": 0} for n in self.groups}},
         }
+        if self.spur_bins is not None:
+            st["spurs"] = torch.zeros(len(self.spur_bins), dtype=torch.complex64, device=self.device)
+        return st
 
     def init_params(self):
         return {n: g.params for n, g in self.groups.items()}
@@ -495,16 +602,56 @@ class Engine:
         self.groups[group].retune(params[group], idx, freq)
         return params
 
+    def set_edges(self, params, group: str, idx: int, low: float, high: float,
+                  kaiser_beta=None, filter2_kaiser_beta=None):
+        """Redesign one channel's filter in place; returns params (nothing
+        rebuilt). filter2_kaiser_beta is for the filter2 cascade, a later
+        slice: groups here have no second stage."""
+        self.groups[group].set_edges(params[group], idx, low, high, kaiser_beta)
+        return params
+
     def set_armed(self, params, group: str, armed: bool):
         """Arm or disarm a spectrum group; returns params."""
         self.groups[group].set_armed(params[group], armed)
         return params
+
+    def adopt_host_params(self, old: "Engine"):
+        """Copy the per-channel host params a previous engine's commands
+        tweaked into this one (the channel-table rebuild path): groups of
+        the same name keep their leading rows. Returns this engine's fresh
+        device params, built from the adopted host mirrors."""
+        for name, g in self.groups.items():
+            og = old.groups.get(name)
+            if og is None:
+                continue
+            n = min(g.C, og.C)
+            for key in ("shifts", "inc_q32", "adj_q32", "responses", "resp_tiles", "tile_lo",
+                        "slope"):
+                if (key in g.host and key in og.host
+                        and g.host[key].shape[1:] == og.host[key].shape[1:]):
+                    g.host[key][:n] = og.host[key][:n]
+            if g.tiled and ("resp_tiles" not in og.host
+                            or g.host["resp_tiles"].shape[1:] != og.host["resp_tiles"].shape[1:]):
+                for i in range(n):
+                    g._refresh_tile_row(i)
+            for key, arr in g.host["demod"].items():
+                o = og.host["demod"].get(key)
+                if o is not None and arr.shape[1:] == o.shape[1:]:
+                    arr[:n] = o[:n]
+            g.params = to_tensors(g.host, self.device)
+        return self.init_params()
 
     def step(self, state, params, block: torch.Tensor):
         """One block: [L] input samples -> per-group audio + status info."""
         host = state["host"]
         jobnum = host["jobnum"]
         mstate, F = master_fft(self.master, state["master"], block)
+        spur_state = None
+        if self.spur_bins is not None:
+            # F is this block's own tensor: notch it in place
+            vals = F.index_select(0, self._spur_idx)
+            spur_state = state["spurs"] + float(np.float32(0.01)) * (vals - state["spurs"])
+            F.index_add_(0, self._spur_idx, -spur_state)  # tracker ~10 s (filter.c:447)
         new_groups, outputs, host_groups = {}, {}, {}
         for name, g in self.groups.items():
             gs, audio, info, host_groups[name] = g.step(
@@ -518,4 +665,42 @@ class Engine:
         outputs["_frontend"] = {"if_power": p_in.mean()[None]}
         new_state = {"master": mstate, "groups": new_groups,
                      "host": {"jobnum": jobnum + 1, "groups": host_groups}}
+        if spur_state is not None:
+            new_state["spurs"] = spur_state
         return new_state, outputs
+
+
+def migrate_state(old_state, new_state):
+    """Merge a previous engine's carried state into a fresh one after a
+    channel-table rebuild (the reference's dynamic create_chan,
+    radio_status.c:92-105): groups of the same name keep their leading
+    [C_old] rows (master tail, AGC gains, squelch state, phase
+    accumulators), new rows keep their initial values. The host mirrors
+    carry too: the block counter, and each surviving group's warm-up and
+    frame counts."""
+    def merge_leaf(old, new):
+        if old.shape == new.shape:
+            return old.to(new.dtype)
+        if old.dim() == new.dim() >= 1 and old.shape[1:] == new.shape[1:]:
+            if new.shape[0] > old.shape[0]:
+                out = new.clone()
+                out[: old.shape[0]] = old.to(new.dtype)
+                return out
+            return old[: new.shape[0]].to(new.dtype)
+        return new
+
+    def merge(old, new):
+        if isinstance(new, dict):
+            return {k: merge(old.get(k), v) if isinstance(old, dict) else v
+                    for k, v in new.items()}
+        if not torch.is_tensor(old) or not torch.is_tensor(new):
+            return new
+        return merge_leaf(old, new)
+
+    out = merge({k: v for k, v in old_state.items() if k != "host"},
+                {k: v for k, v in new_state.items() if k != "host"})
+    old_host, new_host = old_state["host"], new_state["host"]
+    out["host"] = {"jobnum": old_host["jobnum"],
+                   "groups": {n: dict(old_host["groups"].get(n, h))
+                              for n, h in new_host["groups"].items()}}
+    return out

@@ -14,6 +14,9 @@ import torch
 
 import ka9q_radio_tpu.runtime as jrt
 import ka9q_radio_tpu_torch.runtime as trt
+from ka9q_radio_tpu_torch.models import linear as tlin
+from ka9q_radio_tpu_torch.ops import agc as tagc
+from test_torch_models import agc_margins, agc_on_edge, assert_agc_held
 
 torch.set_num_threads(2)
 
@@ -82,7 +85,7 @@ def test_init_params_and_state_equal_jax(engines):
     _assert_same_tree(_tree_np(ts), jax.device_get(je.init_state()))
 
 
-def test_slice_matches_jax_engine():
+def test_slice_matches_jax_engine(monkeypatch):
     """Six blocks (two warm-up, the N0 cadence at block 4) with a retune
     before block 3, both engines from the same carried-over params and
     state. Bounds: audio 5e-4 of its peak, N0 rtol 2e-4, sweep rtol 2e-4.
@@ -90,9 +93,27 @@ def test_slice_matches_jax_engine():
     The two master FFT libraries round differently, so a window bin lying
     within ~1e-7 of the 1.5 q cut can fall on the other side of it, a
     ~0.5% step in that channel's N0; this seed's scene has no such bin (the
-    estimator itself is held exact on equal energies in test_torch_noise)."""
+    estimator itself is held exact on equal energies in test_torch_noise).
+
+    The AGC's decisions can sit on their thresholds by construction (a
+    steady N0 between cadence blocks after a noise ramp, a steady carrier
+    after a strong ramp): each block the port's AGC starts from JAX's AGC
+    state, and its carried AGC state is held as in
+    test_torch_models.test_linear_demod_matches_jax, from the margins of
+    the baseband the port's AGC saw."""
+    seen = {}
+
+    def agc_spy(state, bb, bb_power, n0, **kw):
+        seen["m"] = agc_margins(state["gain"].numpy(), bb.numpy(), bb_power.numpy(), n0.numpy(),
+                                kw["headroom"].numpy(), kw["threshold"].numpy(),
+                                kw["bandwidth"].numpy(), kw["blocktime"])
+        seen["enable"] = kw["enable"].numpy()
+        return tagc.agc_block(state, bb, bb_power, n0, **kw)
+
+    monkeypatch.setattr(tlin, "agc_block", agc_spy)
     je = jrt.Engine(samprate=FS, real=True, groups=_groups(jrt), fft="monolithic")
     te = trt.Engine(samprate=FS, real=True, groups=_groups(trt), device="cpu")
+    g = te.groups["hf"]
     jp, js = je.init_params(), je.init_state()
     tp = trt.params_from_jax(jax.device_get(jp), device="cpu")
     ts = trt.state_from_jax(jax.device_get(js), device="cpu")
@@ -104,8 +125,16 @@ def test_slice_matches_jax_engine():
             tp = te.retune(tp, "hf", 8, float(FREQS[8]) - 400.0)
             _assert_same_tree(_tree_np(tp), jax.device_get(jp))
         x = _block(b, te.L, rng)
+        prev_agc = jax.device_get(js["groups"]["hf"]["demod"]["agc"])
+        ts["groups"]["hf"]["demod"]["agc"] = {k: torch.from_numpy(np.array(v))
+                                              for k, v in prev_agc.items()}
         js, jo = step(js, jp, jnp.asarray(x))
         ts, to = te.step(ts, tp, torch.from_numpy(x))
+        edge = agc_on_edge(seen["m"], seen["enable"])
+        assert_agc_held(ts["groups"]["hf"]["demod"]["agc"], js["groups"]["hf"]["demod"]["agc"],
+                        prev_agc["hangcount"], edge, seen["m"],
+                        g.host["demod"]["hangtime_samples"], g.olen, g.spec.samprate,
+                        rtol=2e-4)
         jo = jax.device_get(jo)
         ja, ta = jo["hf"]["audio"], to["hf"]["audio"].numpy()
         assert np.abs(ja).max() > 0.01
@@ -125,6 +154,7 @@ def test_slice_matches_jax_engine():
     np.testing.assert_array_equal(ts["groups"]["hf"]["dc"]["acc_q32"].numpy(),
                                   js["groups"]["hf"]["dc"]["acc_q32"])
     np.testing.assert_array_equal(ts["master"]["tail"].numpy(), js["master"]["tail"])
+    del ts["groups"]["hf"]["demod"]["agc"], js["groups"]["hf"]["demod"]["agc"]  # held above
     _assert_same_tree(_tree_np(ts), js, rtol=2e-4)
     # the retuned channel hears its carrier 400 Hz higher
     a = to["hf"]["audio"][8].numpy()

@@ -1,0 +1,535 @@
+"""The port's radiod against the JAX package's on the CPU: both daemons run
+with use_network=False on the tests/test_radiod.py config (its one section
+is usb, a ported mode), and the same numpy blocks go in through
+step_block(block=...). RTP headers are equal and payload samples within
+1 LSB; status TLVs equal field by field (integers exact, floats rtol 2e-5;
+the wall-clock GPS time and block-time test point left out); the same
+command packets give the same results. Then the port's own behaviour:
+checkpoints, time-shards, the big-group path with egress compaction, the
+refusal of demodulators it does not carry yet, errors that propagate, and a
+multicast loopback driven by the JAX package's tune client.
+
+The scene's steady carrier puts its channel's AGC on the strong threshold
+by construction (after a strong ramp the gain is headroom/ampl, and the next
+block's ampl is the same up to the noise): the side each package takes
+moves the gain by about 1e-5, which neither a 1-LSB sample bound nor the
+GAIN field's rtol can see, so those are compared as they are. The noise is
+loud enough (-60 dBFS) that the two master FFT libraries' rounding cannot
+flip a bin across the N0 estimator's cut (ROADMAP Queue 3)."""
+import os
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from ka9q_radio_tpu.config import load_config as jload
+from ka9q_radio_tpu.runtime.radiod import Radiod as JRadiod
+from ka9q_radio_tpu_torch.config import load_config as tload
+from ka9q_radio_tpu_torch.net.rtp import Encoding, RtpHeader, decode_samples
+from ka9q_radio_tpu_torch.net.status import StatusType as T
+from ka9q_radio_tpu_torch.net.status import decode_status, encode_status
+from ka9q_radio_tpu_torch.runtime import radiod as tradiod
+from test_radiod import CONF
+
+torch.set_num_threads(2)
+
+FS = 1_024_000
+UNTIMED = {T.GPS_TIME, T.TP1}  # wall clock and block time: not a function of the input
+
+
+def _daemons(conf: str = CONF):
+    return (JRadiod(jload(conf), use_network=False),
+            tradiod.Radiod(tload(conf), use_network=False, device="cpu"))
+
+
+def _block(b: int, L: int, rng, real: bool = False, carrier: float = 201_000.0) -> np.ndarray:
+    t = np.arange(b * L, (b + 1) * L) / FS
+    if real:
+        x = 0.1 * np.cos(2 * np.pi * carrier * t) + 1e-3 * rng.standard_normal(L)
+        return x.astype(np.float32)
+    x = 0.1 * np.exp(2j * np.pi * carrier * t)
+    x += 1e-3 * (rng.standard_normal(L) + 1j * rng.standard_normal(L))
+    return x.astype(np.complex64)
+
+
+def _step_both(jr, tr, nblocks: int, rng, **kw):
+    for _ in range(nblocks):
+        x = _block(tr.blocks, tr.engine.L, rng, **kw)
+        jr.step_block(block=x)
+        tr.step_block(block=x)
+
+
+def assert_same_status(pj: bytes, pt: bytes):
+    kj, fj, rj = decode_status(pj)
+    kt, ft, rt = decode_status(pt)
+    assert kj == kt and rj == rt
+    assert set(fj) == set(ft), set(fj) ^ set(ft)
+    for k in fj:
+        if k in UNTIMED:
+            continue
+        a, b = fj[k], ft[k]
+        if isinstance(a, float):
+            np.testing.assert_allclose(b, a, rtol=2e-5, atol=1e-12, err_msg=k.name)
+        elif isinstance(a, list):
+            np.testing.assert_allclose(b, a, rtol=2e-5, err_msg=k.name)
+        else:
+            assert a == b, (k.name, a, b)
+
+
+def assert_same_sent(jsent: list, tsent: list):
+    """The two daemons' packets, in order: RTP headers equal and samples
+    within 1 LSB; status field by field."""
+    assert [k for k, _ in jsent] == [k for k, _ in tsent]
+    for (kind, pj), (_, pt) in zip(jsent, tsent):
+        if kind == "status":
+            assert_same_status(pj, pt)
+            continue
+        hj, aj = RtpHeader.unpack(pj)
+        ht, at = RtpHeader.unpack(pt)
+        assert (hj.ssrc, hj.seq, hj.timestamp, hj.type, hj.marker) == \
+            (ht.ssrc, ht.seq, ht.timestamp, ht.type, ht.marker)
+        assert len(aj) == len(at)
+        d = np.frombuffer(aj, ">i2").astype(np.int32) - np.frombuffer(at, ">i2").astype(np.int32)
+        assert np.abs(d).max(initial=0) <= 1  # s16be, the configs' encoding
+
+
+def _settle(*daemons):
+    """Land any background pool restock now (its timing is the host's)."""
+    for rd in daemons:
+        rd._finish_restock(wait=True)
+
+
+def _chan_table(rd) -> dict:
+    return {s: (c.group, c.idx, c.freq, c.low, c.high, c.samprate, c.pt, c.preset, c.dynamic,
+                c.lifetime, c.parked) for s, c in rd.chans.items()}
+
+
+def _host_mirrors_equal(jr, tr):
+    assert list(jr.engine.groups) == list(tr.engine.groups)
+    for name, jg in jr.engine.groups.items():
+        tg = tr.engine.groups[name]
+        for k in ("shifts", "inc_q32", "adj_q32", "tile_lo", "slope"):
+            np.testing.assert_array_equal(tg.host[k], jg.host[k], err_msg=f"{name}/{k}")
+        np.testing.assert_array_equal(tg.host["responses"], jg.host["responses"])
+        for k, v in jg.host["demod"].items():
+            np.testing.assert_array_equal(tg.host["demod"][k], v, err_msg=f"{name}/demod/{k}")
+            np.testing.assert_array_equal(tr.params[name]["demod"][k].numpy(), v)
+        np.testing.assert_array_equal(tr.params[name]["shifts"].numpy(), jg.host["shifts"])
+
+
+def test_rtp_and_status_match_jax():
+    jr, tr = _daemons()
+    rng = np.random.default_rng(31)
+    _step_both(jr, tr, 12, rng)
+    for tag in (42, 43):
+        for rd in (jr, tr):
+            rd.handle_packet(encode_status({T.OUTPUT_SSRC: 200, T.COMMAND_TAG: tag}, cmd=True))
+    assert sum(k == "data" for k, _ in tr._sent) == 12
+    assert sum(k == "status" for k, _ in tr._sent) == 2 + 2  # update = 5, two polls
+    assert_same_sent(jr._sent, tr._sent)
+    # the carrier 1 kHz above the dial is the audio's tone
+    audio = np.concatenate([decode_samples(RtpHeader.unpack(p)[1], Encoding.S16BE)
+                            for k, p in tr._sent[-12:] if k == "data"])
+    f = np.fft.rfftfreq(audio.size, 1 / 16_000)
+    assert abs(f[np.argmax(np.abs(np.fft.rfft(audio * np.hanning(audio.size))))] - 1000.0) < 20.0
+
+
+def test_commands_match_jax():
+    """Retune, a usb -> lsb preset (a move to another rate class: a table
+    rebuild), new edges and headroom, a dynamic create whose lifetime
+    expires, and a removal give the same packets, channel tables and params
+    from both daemons. Background pool restocks are landed before each
+    comparison and sized by dyn-slots alone: when one lands, and the pool
+    the measured create rate asks for, are the host's timing, not the
+    input's."""
+    conf = CONF.replace("update = 5", "update = 5\nlifetime = 0.08\ndyn-slots = 2")
+    jr, tr = _daemons(conf)
+    for rd in (jr, tr):
+        rd._pool_need = lambda gname: 0  # the provisioning rule reads the host's clock
+    rng = np.random.default_rng(32)
+    _step_both(jr, tr, 4, rng)
+    cmds = [
+        {T.OUTPUT_SSRC: 200, T.COMMAND_TAG: 1, T.RADIO_FREQUENCY: 200_500.0},
+        {T.OUTPUT_SSRC: 200, T.COMMAND_TAG: 2, T.LOW_EDGE: -2000.0, T.HIGH_EDGE: 2000.0},
+        {T.OUTPUT_SSRC: 200, T.COMMAND_TAG: 3, T.HEADROOM: -10.0},
+        {T.OUTPUT_SSRC: 200, T.COMMAND_TAG: 4, T.PRESET: "lsb", T.RADIO_FREQUENCY: 202_000.0},
+        {T.OUTPUT_SSRC: 9999, T.COMMAND_TAG: 5, T.PRESET: "usb", T.RADIO_FREQUENCY: 200_000.0},
+        {T.OUTPUT_SSRC: 8888, T.COMMAND_TAG: 6, T.PRESET: "usb", T.RADIO_FREQUENCY: 199_000.0},
+    ]
+    for c in cmds:
+        pkt = encode_status(c, cmd=True)
+        jr.handle_packet(pkt)
+        tr.handle_packet(pkt)
+        _settle(jr, tr)
+        assert _chan_table(tr) == _chan_table(jr)
+        _host_mirrors_equal(jr, tr)
+        _step_both(jr, tr, 1, rng)
+    assert tr.chans[200].preset == "lsb" and tr.chans[200].group != "hf"
+    assert tr.chans[9999].dynamic and 8888 in tr.chans
+    for rd in (jr, tr):
+        rd.remove_channel(8888)
+    _settle(jr, tr)
+    assert _chan_table(tr) == _chan_table(jr) and 8888 not in tr.chans
+    assert {g: sorted(v) for g, v in tr.free_slots.items()} == \
+        {g: sorted(v) for g, v in jr.free_slots.items()}
+    _step_both(jr, tr, 6, rng)  # lifetime 0.08 s = 4 blocks: 9999 expires
+    _settle(jr, tr)
+    assert 9999 not in tr.chans and 9999 not in jr.chans
+    assert {g: sorted(v) for g, v in tr.free_slots.items()} == \
+        {g: sorted(v) for g, v in jr.free_slots.items()}
+    _host_mirrors_equal(jr, tr)
+    assert_same_sent(jr._sent, tr._sent)
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """The carried state, the host mirrors and the generator survive a
+    save and restore: the restored daemon's next block equals the
+    original's."""
+    rd = tradiod.Radiod(tload(CONF), use_network=False, device="cpu")
+    for _ in range(6):
+        rd.step_block()
+    path = str(tmp_path / "state.npz")
+    rd.save_checkpoint(path)
+    before = rd.step_block()
+    rd2 = tradiod.Radiod(tload(CONF), use_network=False, device="cpu")
+    assert rd2.load_checkpoint(path)
+    assert rd2.blocks == 6 and rd2.state["host"]["jobnum"] == 6
+    after = rd2.step_block()
+    np.testing.assert_array_equal(before["hf"]["audio"], after["hf"]["audio"])
+    assert rd2.chans[200].rtp_timestamp == rd.chans[200].rtp_timestamp
+    # a different channel table refuses cleanly
+    rd3 = tradiod.Radiod(tload(CONF.replace("freq = 200k0", "freq = 200k0 210k0")),
+                         use_network=False, device="cpu")
+    assert not rd3.load_checkpoint(path)
+
+
+def test_time_shards_equal_single_steps():
+    """time-shards = 2: two blocks a dispatch, one device->host copy; the
+    packets equal those of two single steps."""
+    conf2 = CONF.replace("update = 5", "update = 4\ntime-shards = 2")
+    conf1 = CONF.replace("update = 5", "update = 4")
+    r2 = tradiod.Radiod(tload(conf2), use_network=False, device="cpu")
+    r1 = tradiod.Radiod(tload(conf1), use_network=False, device="cpu")
+    rng = np.random.default_rng(33)
+    L = r1.engine.L
+    for d in range(5):
+        pair = np.stack([_block(2 * d, L, rng), _block(2 * d + 1, L, rng)])
+        r2.step_block(block=pair)
+        r1.step_block(block=pair[0])
+        r1.step_block(block=pair[1])
+    assert r2.blocks == r1.blocks == 10
+    assert [k for k, _ in r2._sent] == [k for k, _ in r1._sent]
+    for (kind, a), (_, b) in zip(r2._sent, r1._sent):
+        if kind == "data":
+            assert a == b
+        else:
+            assert_same_status(a, b)
+
+
+BIG = """
+[global]
+hardware = sig_gen
+mode = usb
+update = 2
+big-group = 4
+[sig_gen]
+device = sig_gen
+samprate = 1m024
+real = yes
+carrier = 60k7
+amplitude = -20
+noise = -60
+[hf]
+mode = usb
+samprate = 12k
+raster = 40k 120k 10k
+snr-squelch = yes
+squelch-open = 8
+squelch-close = 7
+egress-slots = 4
+"""
+
+
+def test_big_group_egress_matches_jax():
+    """A big-group threshold of 4 puts the 8-channel group on the scalable
+    path (lazy info, squelch-compacted egress into 4 slots): the packets,
+    the overflow count and the open channel match JAX's."""
+    jr, tr = _daemons(BIG)
+    assert tr.engine.groups["hf"].spec.egress_slots == 4 and tr.engine.groups["hf"].C == 8
+    rng = np.random.default_rng(34)
+    _step_both(jr, tr, 16, rng, real=True, carrier=60_700.0)
+    assert isinstance(tr.chans[60].last_info, tradiod._LazyGroupInfo)
+    assert tr.egress_overflows == jr.egress_overflows
+    assert_same_sent(jr._sent, tr._sent)
+    late = {int.from_bytes(p[8:12], "big") for k, p in tr._sent[-30:] if k == "data"}
+    assert late == {60}
+
+
+@pytest.mark.parametrize("fields,what", [
+    ({T.PRESET: "fm"}, "item 13"), ({T.DEMOD_TYPE: 1}, "item 13"),
+    ({T.PRESET: "am"}, "item 11"), ({T.PRESET: "cwu"}, "item 14")])
+def test_unported_mode_command_refused(capsys, fields, what):
+    """A preset or demod switch to a mode the port does not carry yet is
+    refused: the channel keeps its mode, one line naming the later slice
+    goes to stderr, and the daemon keeps running. So is a dynamic create in
+    fm."""
+    rd = tradiod.Radiod(tload(CONF), use_network=False, device="cpu")
+    rd.step_block()
+    before = _chan_table(rd)
+    eng = rd.engine
+    rd.handle_packet(encode_status({T.OUTPUT_SSRC: 200, T.RADIO_FREQUENCY: 190_000.0, **fields},
+                                   cmd=True))
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and "later slice" in err[0] and what in err[0], err
+    assert _chan_table(rd) == before and rd.engine is eng
+    rd.handle_packet(encode_status({T.OUTPUT_SSRC: 7777, T.PRESET: "nfm",
+                                    T.RADIO_FREQUENCY: 150_000.0}, cmd=True))
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and "item 13" in err[0] and 7777 not in rd.chans
+    assert rd.step_block() is not None
+    assert rd.chans[200].preset == "" and rd.engine.groups["hf"].spec.demod == "linear"
+
+
+@pytest.mark.parametrize("edit,match", [
+    (("[hf]", "[fm]\nmode = nfm\nfreq = 150k0\n[hf]"), "item 13"),
+    (("[global]", "[global]\nmesh = yes"), "item 17"),
+    (("hardware = sig_gen", "hardware = sig_gen sig2\n[sig2]\ndevice = sig_gen\n"
+      "samprate = 1m024\nreal = no"), "item 16")])
+def test_unported_at_startup_raises(edit, match):
+    with pytest.raises(NotImplementedError, match=match):
+        tradiod.Radiod(tload(CONF.replace(*edit)), use_network=False, device="cpu")
+
+
+def test_engine_error_propagates(monkeypatch):
+    """An error of the engine step is never a dropped block: step_block
+    raises it and counts no drop."""
+    def broken(self, state, params, block):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(tradiod.Engine, "step", broken)
+    rd = tradiod.Radiod(tload(CONF), use_network=False, device="cpu")
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        rd.step_block()
+    assert rd.block_drops == 0 and rd.blocks == 0
+
+
+def test_frontend_read_gaps_count_drops():
+    """Block drops count the front end's read gaps, and only those."""
+    rd = tradiod.Radiod(tload(CONF), use_network=False, device="cpu")
+
+    class Starved:
+        timeouts = 0
+
+        def read_block(self, L):
+            self.timeouts += 1  # the reader zero-filled this block
+            return np.zeros(L, np.complex64)
+
+    rd.frontend, rd.source_state = Starved(), None
+    rd.step_block()
+    rd.step_block()
+    assert rd.block_drops == 2 and rd.blocks == 2
+
+
+def test_radiod_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tradiod.Radiod(tload(CONF), use_network=False)
+
+
+def test_cli_runs_on_cpu(tmp_path, capsys):
+    from ka9q_radio_tpu_torch.cli.radiod import main
+
+    path = tmp_path / "radiod.conf"
+    path.write_text(CONF)
+    assert main(["--device", "cpu", "--no-network", "--flat-out", "--blocks", "3",
+                 "-v", str(path)]) == 0
+    err = capsys.readouterr().err
+    assert "1 channels ready on cpu" in err and "3 blocks" in err
+
+
+def _loopback_daemon(conf: str):
+    rd = tradiod.Radiod(tload(conf), use_network=True, device="cpu")
+    stop = threading.Event()
+
+    def run():
+        while not stop.is_set():
+            rd.step_block()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    deadline = time.time() + 30
+    while rd.blocks < 4 and time.time() < deadline:
+        time.sleep(0.05)
+    return rd, stop, t
+
+
+def test_loopback_tune_client(capsys):
+    """The JAX package's tune client polls and retunes the port's daemon
+    over multicast loopback."""
+    from ka9q_radio_tpu.cli.tune import main as tune
+
+    tag = f"torch-lb-{os.getpid()}"
+    conf = CONF.replace("status = test.local", f"status = {tag}.local").replace(
+        "data = test-pcm.local", f"data = {tag}-pcm.local").replace(
+        "[global]", "[global]\nadvertise = no\nsap = no\nttl = 0")
+    rd, stop, t = _loopback_daemon(conf)
+    try:
+        assert tune(["--radio", f"{tag}.local", "--ssrc", "200", "--timeout", "5"]) == 0
+        out = capsys.readouterr().out
+        assert "RADIO_FREQUENCY" in out and "200000" in out
+        assert tune(["--radio", f"{tag}.local", "--ssrc", "200", "-f", "201k5",
+                     "--timeout", "5"]) == 0
+        assert "201500" in capsys.readouterr().out
+        assert rd.chans[200].freq == 201_500.0
+    finally:
+        stop.set()
+        t.join(timeout=10)
+
+
+def test_loopback_native_edge():
+    """With g++ present the big group sends through the native edge
+    (sendmmsg, indexed by the egress compaction): only the carrier's channel
+    reaches the wire, and every channel beacons from the edge's socket."""
+    import select
+    import shutil
+
+    from ka9q_radio_tpu_torch.net.multicast import listen_socket, resolve_dest
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the native edge cannot build here")
+    tag = f"torch-edge-{os.getpid()}"
+    conf = BIG.replace("[global]", f"[global]\nstatus = {tag}-ctl.local\ndata = {tag}-pcm.local\n"
+                                   "advertise = no\nsap = no\nttl = 0")
+    rd = tradiod.Radiod(tload(conf), use_network=True, device="cpu")
+    assert "hf" in rd.edges, "the native edge did not come up"
+    rx = listen_socket(resolve_dest(f"{tag}-pcm.local", 5004))
+    rx_st = listen_socket(resolve_dest(f"{tag}-pcm.local", 5006))
+    for _ in range(8):  # warm-up opens every squelch for a block or two
+        rd.step_block()
+    while select.select([rx, rx_st], [], [], 0)[0]:
+        for sk in select.select([rx, rx_st], [], [], 0)[0]:
+            sk.recvfrom(65536)
+    audio, beacons = set(), set()
+    deadline = time.time() + 30
+    n = 0
+    while time.time() < deadline and (n < 30 or len(beacons) < 8):
+        rd.step_block()
+        n += 1
+        for sk in select.select([rx, rx_st], [], [], 0)[0]:
+            pkt, _ = sk.recvfrom(65536)
+            if sk is rx and len(pkt) > 12:
+                audio.add(int.from_bytes(pkt[8:12], "big"))
+            elif sk is rx_st:
+                ssrc = decode_status(pkt)[1].get(T.OUTPUT_SSRC)
+                if ssrc is not None:
+                    beacons.add(ssrc)
+    assert audio == {60}, audio
+    assert beacons >= {40, 50, 60, 70, 80, 90, 100, 110}, beacons
+    rx.close()
+    rx_st.close()
+
+
+def _no_edge(reason):
+    raise OSError(reason)
+
+
+@pytest.mark.parametrize("patch,said", [
+    (dict(native_available=lambda: False), "native edge unavailable"),
+    (dict(native_available=lambda: True, native_has_opus=lambda: False,
+          RtpEdge=lambda *a, **k: _no_edge("no socket")), "[hf] native edge to"),
+], ids=["build", "socket"])
+def test_native_edge_failure_is_said(monkeypatch, capsys, patch, said):
+    """A big group left on the Python path (it cannot keep up there) says
+    why on stderr, and the daemon goes on."""
+    import ka9q_radio_tpu_torch.native as native
+
+    for name, fn in patch.items():
+        monkeypatch.setattr(native, name, fn)
+    tag = f"torch-noedge-{os.getpid()}"
+    conf = BIG.replace("[global]", f"[global]\nstatus = {tag}-ctl.local\ndata = {tag}-pcm.local\n"
+                                   "advertise = no\nsap = no\nttl = 0")
+    rd = tradiod.Radiod(tload(conf), use_network=True, device="cpu")
+    assert rd.edges == {}
+    assert said in capsys.readouterr().err
+    rd.step_block()
+    assert rd.blocks == 1
+
+
+def test_file_source_matches_jax(tmp_path):
+    """A capture file through the file front end of both daemons (the block
+    crosses to the device from pinned host memory in the port): the same
+    packets."""
+    rng = np.random.default_rng(35)
+    L = 20_480
+    x = np.concatenate([_block(b, L, rng) for b in range(8)])
+    inter = np.empty(2 * x.size, np.float32)
+    inter[0::2], inter[1::2] = x.real, x.imag
+    path = tmp_path / "hf.iq"
+    path.write_bytes(inter.astype("<f4").tobytes())
+    conf = f"""
+[global]
+hardware = cap
+mode = usb
+update = 3
+[cap]
+device = file
+path = {path}
+samprate = 1m024
+format = cf32le
+[hf]
+mode = usb
+samprate = 16k
+freq = 200k0
+"""
+    jr, tr = _daemons(conf)
+    assert type(tr.frontend).__module__ == "ka9q_radio_tpu_torch.runtime.frontends"
+    for _ in range(8):
+        jr.step_block()
+        tr.step_block()
+    assert tr.block_drops == 0
+    assert_same_sent(jr._sent, tr._sent)
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["python", "native"])
+def test_rtp_source_matches_jax(native):
+    """An RTP A/D stream with one lost packet, read by the port's RtpSource
+    and the JAX package's side by side (Python reassembly, or the native
+    recvmmsg ring built from the port's own rtp_edge.cpp): the same
+    samples, the loss zero-filled."""
+    import shutil
+    import socket
+
+    from ka9q_radio_tpu.runtime.frontends import RtpSource as JRtpSource
+    from ka9q_radio_tpu_torch.net.multicast import make_maddr
+    from ka9q_radio_tpu_torch.net.rtp import encode_samples
+    from ka9q_radio_tpu_torch.runtime.frontends import RtpSource
+
+    if native and shutil.which("g++") is None:
+        pytest.skip("no g++: the native reader cannot build here")
+    stream = f"torch-feed-{os.getpid()}-{int(native)}.local"
+    port = 46000 + os.getpid() % 1000 + 7 * int(native)
+    kw = dict(samprate=48_000, real=False, encoding="s16be", native=native)
+    tsrc, jsrc = RtpSource(f"{stream}:{port}", **kw), JRtpSource(f"{stream}:{port}", **kw)
+    assert (tsrc._native is not None) == native
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    tx.setsockopt(socket.IPPROTO_IP, socket.IP_MULTICAST_TTL, 0)
+    rng = np.random.default_rng(36)
+    nf = 240
+    for k in range(40):
+        iq = 0.3 * (rng.standard_normal(nf) + 1j * rng.standard_normal(nf)) / 4
+        x = np.empty(2 * nf, np.float32)
+        x[0::2], x[1::2] = iq.real, iq.imag
+        if k != 20:
+            hdr = RtpHeader(type=97, seq=k, timestamp=k * nf, ssrc=7)
+            tx.sendto(hdr.pack() + encode_samples(x, Encoding.S16BE), (make_maddr(stream), port))
+    time.sleep(0.3)
+    a, b = tsrc.read_block(39 * nf, timeout=1.0), jsrc.read_block(39 * nf, timeout=1.0)
+    assert a.dtype == np.complex64
+    np.testing.assert_array_equal(a, b)
+    assert np.all(a[20 * nf: 21 * nf] == 0) and np.abs(a[:nf]).max() > 0
+    for s in (tsrc, jsrc):
+        s.close()
+    tx.close()
