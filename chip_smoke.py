@@ -20,7 +20,15 @@ examples/radiod@rx888-wspr.conf HF farm (about 32,700 usb channels with SNR
 squelch, egress-slots 512, time-shards 8, the native edge) fed by a
 sig_gen carrier, its RTP received on a local UDP socket, a retune command
 fed through Radiod.handle_packet, and both kernels checked, timed and
-counted at the daemon's own shapes. Each phase prints one JSON line; the
+counted at the daemon's own shapes. Then the VHF demodulators: both kernels
+at bench.py's nbfm400 shapes (400 NBFM channels on a complex 30.72 Msps
+master) and kernel B at its wfm shapes (8 stations on 7.68 Msps, a
+9,600-bin window), the PLL and Goertzel recurrence kernels against their
+plain loops; nbfm400 through Engine.step (a 1 kHz FM tone, a quiet
+channel's squelch, 64 timed blocks), wfm (stereo separation, the mono
+fallback, 64 timed blocks), and examples/radiod@2m.conf through Radiod
+(CTCSS open and mute, a switch to sam that locks its PLL, a switch to isb,
+a 50 Hz spectrum channel polled). Each phase prints one JSON line; the
 kernels line and the card's `nvidia-smi` name and power limit come before
 the last line, which is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Long logs
@@ -160,13 +168,46 @@ def bound_b(nbytes: int, fp_ops: int, int_ops: int) -> dict:
             "ops_fp32": fp_ops, "ops_int32": int_ops}
 
 
-def check_kernels(eng, params, F) -> list[dict]:
-    """Each kernel against its plain version at the main path's shapes."""
+def tile_rows(tile_lo: np.ndarray, S: int, m) -> np.ndarray:
+    """[C, S/128] master tile rows of each channel's gather (kernel A's
+    input): clipped to a real master's half spectrum, wrapped through DC on
+    a complex one (ops/filterbank.py tiled_channelize)."""
+    from ka9q_radio_tpu_torch.ops.filterbank import _CTILE
+
+    r = np.asarray(tile_lo, np.int64)[:, None] + np.arange(S // _CTILE)
+    if m.real:
+        return np.clip(r, 0, -(-m.bins // _CTILE) - 1)
+    return np.remainder(r, m.bins // _CTILE)
+
+
+def window_bins(shifts: np.ndarray, W: int, m) -> np.ndarray:
+    """[C, W] master bins of each channel's noise window (kernel B's input),
+    placed as ops/noise.py gather_noise_bins places them."""
+    from ka9q_radio_tpu_torch.ops.filterbank import _CTILE
+
+    sh = np.asarray(shifts, np.int64)
+    if m.real:
+        start = np.clip(np.abs(sh) - W // 2, 0, m.bins - W) // _CTILE * _CTILE
+        return start[:, None] + np.arange(W)
+    lo = np.clip(sh - W // 2, -(m.bins // 2), (m.bins - 1) // 2 - (W - 1))
+    return np.remainder(lo // _CTILE * _CTILE + np.arange(W)[:, None], m.bins).T
+
+
+def check_kernels(eng, params, F, group: str = "hf") -> list[dict]:
+    """Each kernel of `group`'s path against its plain version at the shapes
+    the main path gives it: kernel A where the group has an IDFT constant
+    (a slice that takes the FFT-IDFT form, WFM's, does not launch it), then
+    kernel B."""
+    g = eng.groups[group]
+    return ([check_kernel_a(eng, params, F, group)] if g.tile_E is not None else []) \
+        + [check_kernel_b(eng, params, F, group)]
+
+
+def check_kernel_a(eng, params, F, group: str) -> dict:
     from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
     from ka9q_radio_tpu_torch.ops.filterbank import _CTILE, tiled_channelize
-    from ka9q_radio_tpu_torch.ops.noise import estimate_noise_keys, gather_noise_bins
 
-    g, p, m = eng.groups["hf"], params["hf"], eng.master
+    g, p, m = eng.groups[group], params[group], eng.master
     C, S = p["resp_tiles"].shape
     olen = g.olen
 
@@ -189,8 +230,7 @@ def check_kernels(eng, params, F) -> list[dict]:
         fail(f"channelize kernel disagrees: max abs err {err_a} vs bound {3e-5 * scale_a}")
     # library yardstick: one complex GEMM of the gathered, filtered bins by E
     nrows = -(-m.bins // _CTILE)
-    tl = np.asarray(g.host["tile_lo"], np.int64)
-    rows = np.clip(tl[:, None] + np.arange(S // _CTILE), 0, nrows - 1)
+    rows = tile_rows(g.host["tile_lo"], S, m)
     Fp = torch.nn.functional.pad(F, (0, nrows * _CTILE - m.bins)).reshape(nrows, _CTILE)
     x = Fp[torch.as_tensor(rows, device=F.device)].reshape(C, S) * p["resp_tiles"]
     lib_a = device_ms(lambda: torch.matmul(x, g.tile_E))
@@ -199,6 +239,23 @@ def check_kernels(eng, params, F) -> list[dict]:
     # responses, F): how much of its in-step time L2 misses explain
     flush = torch.empty(16 << 20, dtype=torch.float32, device=F.device)
     cold_a = device_ms(lambda: (flush.fill_(1.0), kern_a()), name="channelize_kernel")
+    return {"name": "channelize", "route": "cuda", "source": cc.SOURCES["channelize"],
+            "replaces": cc.REPLACES["channelize"], "launches": 0, "max_abs_err": err_a,
+            "err_bound": 3e-5 * scale_a, "max_abs_err_vs_f64_sum": err_a64,
+            "ms": device_ms(kern_a), "plain_ms": device_ms(plain_a), "call_ms": time_ms(kern_a),
+            "ms_cold_l2": cold_a, **bound_a(nb_a, nops_a), "library_ms": lib_a,
+            "library_call": "torch.matmul(gathered x [C, S] c64, E [S, olen] c64)",
+            "bytes": nb_a, "ops": nops_a,
+            "shape": {"C": C, "S": S, "n": g.n_bins, "olen": olen}}
+
+
+def check_kernel_b(eng, params, F, group: str) -> dict:
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.filterbank import _CTILE
+    from ka9q_radio_tpu_torch.ops.noise import estimate_noise_keys, gather_noise_bins
+
+    g, p, m = eng.groups[group], params[group], eng.master
+    C = p["shifts"].shape[0]
 
     def kern_b():
         return cc.cuda_noise_est(F, p["shifts"], g.noise_bins, m.real, m.N, eng.samprate)
@@ -215,31 +272,17 @@ def check_kernels(eng, params, F) -> list[dict]:
     if not rel_b <= 2e-5:
         fail(f"noise kernel N0 disagrees: max rel err {rel_b} > 2e-5")
     W = -(-g.noise_bins // _CTILE) * _CTILE
-    sh = np.abs(np.asarray(g.host["shifts"], np.int64))
-    start = np.clip(sh - W // 2, 0, m.bins - W) // _CTILE * _CTILE
-    bb = bound_b(*counts_b(C, W, len(np.unique(start[:, None] + np.arange(W)))))
+    bb = bound_b(*counts_b(C, W, len(np.unique(window_bins(g.host["shifts"], W, m)))))
     energies = gather_noise_bins(F, p["shifts"], g.noise_bins, m.real, m.N)
     i_stat = int(np.floor(0.10 * (W - 1)))
     lib_b = device_ms(lambda: torch.kthvalue(energies, i_stat + 1, dim=-1))
-
-    kernels = [
-        {"name": "channelize", "route": "cuda", "source": cc.SOURCES["channelize"],
-         "replaces": cc.REPLACES["channelize"], "launches": 0, "max_abs_err": err_a,
-         "err_bound": 3e-5 * scale_a, "max_abs_err_vs_f64_sum": err_a64,
-         "ms": device_ms(kern_a), "plain_ms": device_ms(plain_a), "call_ms": time_ms(kern_a),
-         "ms_cold_l2": cold_a, **bound_a(nb_a, nops_a), "library_ms": lib_a,
-         "library_call": "torch.matmul(gathered x [C, S] c64, E [S, olen] c64)",
-         "bytes": nb_a, "ops": nops_a,
-         "shape": {"C": C, "S": S, "n": g.n_bins, "olen": olen}},
-        {"name": "noise_est", "route": "cuda", "source": cc.SOURCES["noise_est"],
-         "replaces": cc.REPLACES["noise_est"], "launches": 0,
-         "max_abs_err": float((n0_k - n0_t).abs().max()), "max_rel_err": rel_b,
-         "keys_equal": True, "ms": device_ms(kern_b), "plain_ms": device_ms(plain_b),
-         "call_ms": time_ms(kern_b), **bb, "library_ms": lib_b,
-         "library_call": "torch.kthvalue(gathered |F|^2 [C, W], i + 1): statistic i only",
-         "shape": {"C": C, "W": W}},
-    ]
-    return kernels
+    return {"name": "noise_est", "route": "cuda", "source": cc.SOURCES["noise_est"],
+            "replaces": cc.REPLACES["noise_est"], "launches": 0,
+            "max_abs_err": float((n0_k - n0_t).abs().max()), "max_rel_err": rel_b,
+            "keys_equal": True, "ms": device_ms(kern_b), "plain_ms": device_ms(plain_b),
+            "call_ms": time_ms(kern_b), **bb, "library_ms": lib_b,
+            "library_call": "torch.kthvalue(gathered |F|^2 [C, W], i + 1): statistic i only",
+            "shape": {"C": C, "W": W}}
 
 
 def hf_tiles(C: int, device, seed: int = 7) -> dict:
@@ -397,7 +440,8 @@ def run_scene(eng, params, device, seed: int = 1) -> dict:
     for b in range(10):
         state, out = eng.step(state, params, block(b))
         outs.append(out)
-    launches = dict(cc.launches)
+    # the rx888 path's kernels (it runs no PLL or CTCSS recurrence)
+    launches = {k: cc.launches[k] for k in ("channelize", "noise_est")}
     host_due = sum(1 for b in range(10) if b < 2 or b % eng.noise_every == 0)
     hf = [o["hf"] for o in outs[2:]]
     audio_k = torch.cat([o["audio"][k] for o in hf]).cpu().numpy()
@@ -441,14 +485,31 @@ def run_scene(eng, params, device, seed: int = 1) -> dict:
     }
 
 
-def timed_run(eng, params, device, nblocks: int = 64, warm: int = 4, seed: int = 2) -> dict:
-    """nblocks distinct random blocks through step under sync-debug "error"
-    (any device->host sync raises), timed with CUDA events."""
+def noise_blocks(eng, n: int, n0: float, device, seed: int) -> torch.Tensor:
+    """[n, L] blocks of white noise of density n0 (power/Hz) for eng's
+    master: float32 for a real one, complex64 for a complex one."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    std = float(np.sqrt(n0 * eng.samprate / 2.0))
+    if eng.master.real:
+        return std * torch.randn((n, eng.L), generator=gen, device=device)
+    return torch.view_as_complex(std * torch.randn((n, eng.L, 2), generator=gen, device=device))
+
+
+def outputs_finite(out: dict) -> bool:
+    """Every group's audio, and its spectrum bins where it has them, finite."""
+    return all(bool(torch.isfinite(o["audio"]).all())
+               and bool(torch.isfinite(o["info"].get("bin_data", torch.zeros(0))).all())
+               for name, o in out.items() if not name.startswith("_"))
+
+
+def timed_run(eng, params, device, n0: float = N0_SCENE, nblocks: int = 64, warm: int = 4,
+              seed: int = 2) -> dict:
+    """nblocks distinct noise blocks of density n0 through step under
+    sync-debug "error" (any device->host sync raises), timed with CUDA
+    events; every group's outputs finite."""
     from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
 
-    gen = torch.Generator(device=device).manual_seed(seed)
-    std = float(np.sqrt(N0_SCENE * eng.samprate / 2.0))
-    blocks = std * torch.randn((warm + nblocks, eng.L), generator=gen, device=device)
+    blocks = noise_blocks(eng, warm + nblocks, n0, device, seed)
     state = eng.init_state()
     for b in range(warm):
         state, _ = eng.step(state, params, blocks[b])
@@ -472,9 +533,8 @@ def timed_run(eng, params, device, nblocks: int = 64, warm: int = 4, seed: int =
     return {"blocks": nblocks, "ms_per_block": ms, "host_enqueue_ms_per_block": host_ms,
             "msps": eng.L / (ms * 1e-3) / 1e6,
             "realtime_factor": eng.L / (ms * 1e-3) / eng.samprate,
-            "launches": dict(cc.launches), "due_blocks": due,
-            "finite": bool(torch.isfinite(out["hf"]["audio"]).all()
-                           and torch.isfinite(out["sweep"]["info"]["bin_data"]).all())}
+            "launches": {k: cc.launches[k] for k in ("channelize", "noise_est")},
+            "due_blocks": due, "finite": outputs_finite(out)}
 
 
 def stage_split(eng, params, device) -> dict:
@@ -504,39 +564,66 @@ def stage_split(eng, params, device) -> dict:
             "stage_wall_ms": {k: time_ms(f) for k, f in stages.items()}}
 
 
-def device_busy(eng, params, device, out_dir: Path, nblocks: int = 8, seed: int = 4) -> dict:
-    """Kernel time per steady block from a torch.profiler trace of nblocks
-    steps (CUDA activity): the device's busy time, its kernel count, and
-    the kernels that take most of it. The trace goes to out_dir."""
+KERNEL_NAMES = (("channelize", "channelize_kernel"), ("noise_est", "noise_kernel"))
+RECUR_NAMES = (("pll_scan", "pll_scan_kernel"), ("goertzel", "goertzel_kernel"))
+
+
+def traced(body, what: str):
+    """body() under torch.profiler (CUDA activity): (the profile, its device
+    events, body's wall ms). A profiler session now and then records
+    nothing; it is retried twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device=device).manual_seed(seed)
-    std = float(np.sqrt(N0_SCENE * eng.samprate / 2.0))
-    blocks = std * torch.randn((8 + nblocks, eng.L), generator=gen, device=device)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            body()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if kern:
+            return prof, kern, wall
+    fail(f"{what}: the profiler recorded no device time")
+
+
+def per_launch_ms(kern, names) -> dict:
+    """Each named kernel's mean device ms a launch among the events kern
+    (None where it did not launch)."""
+    out = {}
+    for name, sub in names:
+        evs = [ev for ev in kern if sub in ev.name]
+        out[name] = (sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / len(evs)
+                     if evs else None)
+    return out
+
+
+def device_busy(eng, params, device, out_dir: Path, n0: float = N0_SCENE, nblocks: int = 8,
+                seed: int = 4, trace: str = "step_trace.json") -> dict:
+    """Kernel time per steady block from a torch.profiler trace of nblocks
+    steps of noise of density n0: the device's busy time, its kernel count,
+    the kernels that take most of it, and each kernel of KERNEL_NAMES's
+    time a launch inside the step. The trace goes to out_dir/trace."""
+    blocks = noise_blocks(eng, 8 + nblocks, n0, device, seed)
     state = eng.init_state()
     for b in range(8):
         state, _ = eng.step(state, params, blocks[b])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def body():
+        nonlocal state
         for b in range(8, 8 + nblocks):
             state, _ = eng.step(state, params, blocks[b])
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(out_dir / "step_trace.json"))
-    kern = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+
+    prof, kern, _ = traced(body, trace)
+    prof.export_chrome_trace(str(out_dir / trace))
     by_name: dict[str, float] = {}
     for ev in kern:
         by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / nblocks
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    # the two kernels' device time per launch inside the step
-    in_step = {}
-    for name, sub in (("channelize", "channelize_kernel"), ("noise_est", "noise_kernel")):
-        evs = [ev for ev in kern if sub in ev.name]
-        in_step[name] = (sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / len(evs)
-                         if evs else None)
     return {"blocks": nblocks, "kernels_per_block": len(kern) / nblocks,
-            "busy_ms_per_block": sum(by_name.values()) if kern else None,
-            "kernel_in_step_ms_per_launch": in_step,
+            "busy_ms_per_block": sum(by_name.values()),
+            "kernel_in_step_ms_per_launch": per_launch_ms(kern, KERNEL_NAMES),
             "top_ms_per_block": [[name[:80], ms] for name, ms in top]}
 
 
@@ -795,28 +882,9 @@ def run_daemon(card: str, device) -> tuple[dict, dict]:
 
     # each kernel's device time inside the daemon, with those channels open
     # (profiler, two dispatches)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(3):  # a profiler session now and then records nothing
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(2):
-                rd.step_block()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kern = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-        if kern:
-            break
-    else:
-        fail("daemon: the profiler recorded no device time")
+    _, kern, wall = traced(lambda: [rd.step_block() for _ in range(2)], "daemon")
     busy = sum(ev.time_range.elapsed_us() for ev in kern) / 1e3
-    in_daemon = {}
-    for name, sub in (("channelize", "channelize_kernel"), ("noise_est", "noise_kernel")):
-        evs = [ev for ev in kern if sub in ev.name]
-        in_daemon[name] = (sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / len(evs)
-                           if evs else None)
+    in_daemon = per_launch_ms(kern, KERNEL_NAMES)
     out.update({"profiled_blocks": 2 * D, "device_busy_ms_per_block": busy / (2 * D),
                 "wall_ms_per_block_profiled": wall / (2 * D),
                 "device_idle_share": 1.0 - busy / wall, "kernel_in_daemon_ms": in_daemon})
@@ -840,6 +908,505 @@ def run_daemon(card: str, device) -> tuple[dict, dict]:
     for edge_, _ in rd.edges.values():
         edge_.close()
     return out, per_kernel
+
+
+# ------------------------------------------------------------ the VHF slice
+VHF_FS = 30_720_000  # bench.py nbfm400: complex 30.72 Msps, 400 NBFM channels
+WFM_FS = 7_680_000  # bench.py wfm: complex 7.68 Msps, 8 broadcast stations
+NBFM_K, NBFM_QUIET = 137, 300  # the carrier's channel, a noise-only channel
+NBFM_N0 = 1e-13  # noise density of the VHF scenes, power/Hz (-130 dBFS/Hz)
+WFM_K = 5  # the station that carries the stereo composite
+# the wfm scene: blocks with the pilot, then without; separation is read
+# from block WFM_SETTLE of the stereo run on
+WFM_STEREO_BLOCKS, WFM_MONO_BLOCKS, WFM_SETTLE = 26, 16, 6
+PLL_OPS = 45  # FP32 operations of one PLL sample, sincosf and atan2f as one each
+
+
+def nbfm400_groups(rt):
+    """bench.py's nbfm400 configuration, in the port's specs."""
+    freqs = np.linspace(-0.45 * VHF_FS, 0.45 * VHF_FS, 400)
+    return [rt.GroupSpec(name="nbfm", demod="fm", samprate=24_000, channels=tuple(
+        rt.ChannelSpec(freq=float(f), low=-8000.0, high=8000.0) for f in freqs))]
+
+
+def wfm_groups(rt):
+    """bench.py's wfm configuration, in the port's specs."""
+    freqs = np.linspace(-3_000_000, 3_000_000, 8)
+    return [rt.GroupSpec(name="wfm", demod="wfm", samprate=384_000, channels=tuple(
+        rt.ChannelSpec(freq=float(f), low=-100_000.0, high=100_000.0) for f in freqs))]
+
+
+def tone_amp_db(a: np.ndarray, f0: float, fs: float) -> float:
+    """Amplitude of the tone near f0 in dB (Hann window, energy of the 9
+    bins around it), as tests/test_reference_parity.py measures it."""
+    n = a.size
+    w = np.hanning(n)
+    X = np.fft.rfft(a * w)
+    k = int(np.argmin(np.abs(np.fft.rfftfreq(n, 1 / fs) - f0)))
+    e = float(np.sum(np.abs(X[k - 4:k + 5]) ** 2))
+    return float(20 * np.log10(2.0 * np.sqrt(e / (n * np.sum(w ** 2))) + 1e-15))
+
+
+def recurrence_stand_in(device, C: int = 400) -> dict:
+    """Inputs of pll_scan (T = 240, a SAM block at 12 kHz) and goertzel_block
+    (T = 480, an NBFM block at 24 kHz) at C channels, from a seed: a shape
+    that stands in for a wide SAM or CTCSS group, which no phase runs."""
+    from ka9q_radio_tpu_torch.ops.iir import goertzel_coeff
+    from ka9q_radio_tpu_torch.ops.osc import pll_params
+
+    rng = np.random.default_rng(9)
+    d = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    T = 240
+    t = np.arange(T) / 12_000
+    bb = np.logspace(-3, -0.5, C)[:, None] * np.exp(
+        2j * np.pi * (rng.uniform(-20, 20, (C, 1)) * t + rng.uniform(0, 1, (C, 1))))
+    bb = bb + 3e-4 * (rng.standard_normal((C, T)) + 1j * rng.standard_normal((C, T)))
+    pll = {"vco_phase": d(rng.integers(-2**31, 2**31, C, dtype=np.int64).astype(np.int32)),
+           "u": d(rng.uniform(-1e-3, 1e-3, C).astype(np.float32)),
+           "phi": d(rng.uniform(-0.9, 0.9, C).astype(np.float32)),
+           "wraps": d(rng.integers(-3, 3, C).astype(np.int32))}
+    k1, k2 = pll_params(d(np.full(C, 20.0 / 12_000, np.float32)))
+    coeff, _ = goertzel_coeff(d(rng.uniform(60, 260, C).astype(np.float32) / 24_000))
+    gst = {"s0": d(rng.standard_normal(C).astype(np.float32)),
+           "s1": d(rng.standard_normal(C).astype(np.float32))}
+    return {"pll_scan": (d(bb.astype(np.complex64)), pll, k1, k2, d(np.arange(C) % 3 == 0),
+                         d(np.arange(C) % 2 == 1)),
+            "goertzel": (gst, d(rng.standard_normal((C, 2 * T)).astype(np.float32)), coeff)}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| / |want|, an exact match counting 0 (also where
+    want is 0)."""
+    diff = (got - want).abs()
+    return float(torch.where(diff == 0, 0.0, diff / want.abs()).max())
+
+
+def check_recurrences(args: dict) -> dict:
+    """pll_scan and goertzel_block on `args` (their wrappers' inputs, as
+    recurrence_stand_in gives them) against their plain loops on the card,
+    each timed beside its bound and the loop's time."""
+    from ka9q_radio_tpu_torch.models.linear import pll_scan_plain
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.cuda_recur import cuda_goertzel_block, cuda_pll_scan
+    from ka9q_radio_tpu_torch.ops.iir import goertzel_update_block
+
+    a_p = args["pll_scan"]
+    C, T = a_p[0].shape
+    kern_p = lambda: cuda_pll_scan(*a_p)  # noqa: E731
+    plain_p = lambda: pll_scan_plain(*a_p)  # noqa: E731
+    (mk, sk, gk, nk), (mp, sp, gp, np_) = kern_p(), plain_p()
+    err_p = float((mk - mp).abs().max())
+    dv = int(((sk["vco_phase"].long() - sp["vco_phase"].long() + 2**31) % 2**32 - 2**31)
+             .abs().max())
+    rel_s, rel_n = rel_err(gk, gp), rel_err(nk, np_)
+    bit_p = (torch.equal(mk, mp) and all(torch.equal(sk[k], sp[k]) for k in sk)
+             and torch.equal(gk, gp) and torch.equal(nk, np_))
+    if not (err_p <= 1e-5 * float(mp.abs().max()) and dv <= 4096 and rel_s <= 1e-5
+            and rel_n <= 1e-5 and torch.equal(sk["wraps"], sp["wraps"])):
+        fail(f"pll_scan disagrees with its plain loop at C {C}, T {T}: mixed {err_p}, "
+             f"VCO {dv} LSB, sums {rel_s} {rel_n}")
+    # bytes: bb in, mixed out, the loop constants and flags, the state in
+    # and out, the two sums; operations: PLL_OPS a sample
+    nb_p = 2 * C * T * 8 + C * (4 + 4 + 1 + 1) + 2 * C * 16 + 2 * C * 4
+    b_p, by_p = bound(nb_p, (C * T * PLL_OPS, FP32_OPS_S))
+
+    a_g = args["goertzel"]
+    C2, T2 = a_g[1].shape
+    kern_g = lambda: cuda_goertzel_block(*a_g)  # noqa: E731
+    plain_g = lambda: goertzel_update_block(*a_g)  # noqa: E731
+    got, want = kern_g(), plain_g()
+    err_g = max(float((got[k] - want[k]).abs().max()) for k in got)
+    scale_g = max(float(want[k].abs().max()) for k in want)
+    if not err_g <= 1e-5 * scale_g:
+        fail(f"goertzel_block disagrees with its plain loop at C {C2}, T {T2}: "
+             f"{err_g} vs {1e-5 * scale_g}")
+    nb_g = C2 * T2 * 4 + 5 * C2 * 4  # x, coeff, the state in and out
+    b_g, by_g = bound(nb_g, (3 * C2 * T2, FP32_OPS_S))
+    return {
+        "pll_scan": {
+            "name": "pll_scan", "route": "cuda", "source": cc.SOURCES["pll_scan"],
+            "replaces": cc.REPLACES["pll_scan"], "launches": 0, "max_abs_err": err_p,
+            "err_bound": 1e-5 * float(mp.abs().max()), "vco_max_lsb": dv,
+            "sums_max_rel_err": max(rel_s, rel_n), "bit_exact": bit_p,
+            "ms": device_ms(kern_p), "plain_ms": device_ms(plain_p, n=2, warm_s=0.0),
+            "plain_call_ms": time_ms(plain_p, n=3, warm=1), "call_ms": time_ms(kern_p),
+            "bound_ms": b_p, "bound_by": by_p, "bytes": nb_p, "ops": C * T * PLL_OPS,
+            "ops_counted": f"{PLL_OPS} FP32 operations a sample, sincosf and atan2f one each",
+            "library_ms": None, "shape": {"C": C, "T": T}},
+        "goertzel": {
+            "name": "goertzel", "route": "cuda", "source": cc.SOURCES["goertzel"],
+            "replaces": cc.REPLACES["goertzel"], "launches": 0, "max_abs_err": err_g,
+            "err_bound": 1e-5 * scale_g,
+            "bit_exact": all(torch.equal(got[k], want[k]) for k in got),
+            "ms": device_ms(kern_g), "plain_ms": device_ms(plain_g, n=2, warm_s=0.0),
+            "plain_call_ms": time_ms(plain_g, n=3, warm=1), "call_ms": time_ms(kern_g),
+            "bound_ms": b_g, "bound_by": by_g, "bytes": nb_g, "ops": 3 * C2 * T2,
+            "library_ms": None, "shape": {"C": C2, "T": T2}},
+    }
+
+
+def nbfm400_scene(eng, params, device, nblocks: int = 16) -> dict:
+    """Known answer through Engine.step: channel NBFM_K carries a carrier FM-
+    modulated by 1 kHz at 2.5 kHz deviation (the port's sig_gen), over noise
+    of density NBFM_N0; channel NBFM_QUIET has noise only. Returns the
+    carrier channel's audio peak over blocks 4.., each channel's send flags
+    and the kernels' launches."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.runtime.source import SigGenConfig, siggen_block, siggen_init
+
+    g = eng.groups["nbfm"]
+    freqs = [c.freq for c in g.spec.channels]
+    cfg = SigGenConfig(samprate=eng.samprate, real=False, carrier_hz=freqs[NBFM_K],
+                       amplitude=0.1, noise_n0=NBFM_N0, fm_deviation_hz=2500.0, tone_hz=1000.0)
+    st = siggen_init(cfg, seed=8, device=device)
+    state = eng.init_state()
+    cc.reset_launches()
+    audio, send_k, send_q = [], [], []
+    for b in range(nblocks):
+        st, blk = siggen_block(cfg, st, eng.L)
+        state, out = eng.step(state, params, blk)
+        o = out["nbfm"]
+        audio.append(o["audio"][NBFM_K])
+        send_k.append(bool(o["info"]["send"][NBFM_K]))
+        send_q.append(bool(o["info"]["send"][NBFM_QUIET]))
+    launches = dict(cc.launches)
+    due = sum(1 for b in range(nblocks) if b < 2 or b % eng.noise_every == 0)
+    return {"channel": NBFM_K, "carrier_hz": freqs[NBFM_K], "quiet_channel": NBFM_QUIET,
+            "blocks": nblocks, "audio_shape": list(out["nbfm"]["audio"].shape),
+            "peak_hz": peak_hz(torch.cat(audio[4:]).cpu().numpy(), g.spec.samprate),
+            "send_carrier": send_k, "send_quiet": send_q,
+            "finite": bool(torch.isfinite(out["nbfm"]["audio"]).all()),
+            "launches": launches, "due_blocks": due}
+
+
+def wfm_block(b: int, L: int, fs: float, f0: float, pilot: bool, gen, device) -> torch.Tensor:
+    """Block b of a station at f0 carrying a stereo composite at 75 kHz peak
+    deviation: L = 700 Hz, R = 1,100 Hz, the 19 kHz pilot (left out when
+    `pilot` is false: the L-R subcarrier stays), over noise of NBFM_N0. The
+    FM phase is the exact integral of the composite, in float64."""
+    t = (torch.arange(L, dtype=torch.float64, device=device) + b * L) / fs
+    tp = 2 * np.pi * t
+    ph = 0.225 * (-torch.cos(700 * tp) / (2 * np.pi * 700) - torch.cos(1100 * tp) / (2 * np.pi * 1100))
+    if pilot:
+        ph = ph + 0.1 * -torch.cos(19e3 * tp) / (2 * np.pi * 19e3)
+    # the L-R DSB (sin 700 - sin 1100) sin(38 kHz), integrated
+    for f, sgn in ((700.0, 1.0), (1100.0, -1.0)):
+        ph = ph + 0.225 * sgn * (torch.sin((f - 38e3) * tp) / (4 * np.pi * (f - 38e3))
+                                 - torch.sin((f + 38e3) * tp) / (4 * np.pi * (f + 38e3)))
+    phase = torch.remainder(f0 * t, 1.0) * (2 * np.pi) + 2 * np.pi * 75e3 * ph
+    x = 0.1 * torch.polar(torch.ones_like(phase), phase).to(torch.complex64)
+    std = float(np.sqrt(NBFM_N0 * fs / 2.0))
+    return x + torch.view_as_complex(std * torch.randn((L, 2), generator=gen, device=device))
+
+
+def wfm_scene(eng, params, device) -> dict:
+    """Known answer through Engine.step: station WFM_K carries the stereo
+    composite for WFM_STEREO_BLOCKS, then loses its pilot for
+    WFM_MONO_BLOCKS. Separation is read over blocks WFM_SETTLE.. of the
+    stereo run; the mono tones over the last 10 blocks."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+
+    g = eng.groups["wfm"]
+    f0 = g.spec.channels[WFM_K].freq
+    gen = torch.Generator(device=device).manual_seed(10)
+    state = eng.init_state()
+    cc.reset_launches()
+    audio, stereo = [], []
+    for b in range(WFM_STEREO_BLOCKS + WFM_MONO_BLOCKS):
+        blk = wfm_block(b, eng.L, eng.samprate, f0, b < WFM_STEREO_BLOCKS, gen, device)
+        state, out = eng.step(state, params, blk)
+        audio.append(out["wfm"]["audio"][WFM_K])
+        stereo.append(bool(out["wfm"]["info"]["stereo"][WFM_K]))
+    launches = dict(cc.launches)
+    fs = 48_000
+    st = torch.cat(audio[WFM_SETTLE:WFM_STEREO_BLOCKS]).cpu().numpy().astype(np.float64)
+    mo = torch.cat(audio[-10:]).cpu().numpy().astype(np.float64)[:, 0]
+    sep = {}
+    for col, f_own, f_other in ((0, 700.0, 1100.0), (1, 1100.0, 700.0)):
+        own, other = tone_amp_db(st[:, col], f_own, fs), tone_amp_db(st[:, col], f_other, fs)
+        sep["left" if col == 0 else "right"] = {"own_db": own, "other_db": other,
+                                                "separation_db": own - other}
+    lost = [b for b in range(WFM_STEREO_BLOCKS, len(stereo)) if not stereo[b]]
+    due = sum(1 for b in range(len(stereo)) if b < 2 or b % eng.noise_every == 0)
+    return {"station": WFM_K, "freq_hz": f0, "blocks": len(stereo),
+            "audio_shape": list(out["wfm"]["audio"].shape), "stereo": stereo,
+            "separation": sep,
+            "mono_after_blocks": (lost[0] - WFM_STEREO_BLOCKS + 1) if lost else None,
+            "mono_700_db": tone_amp_db(mo, 700.0, fs), "mono_1100_db": tone_amp_db(mo, 1100.0, fs),
+            "finite": bool(torch.isfinite(out["wfm"]["audio"]).all()),
+            "launches": launches, "due_blocks": due}
+
+
+def check_wfm_scene(sc: dict) -> None:
+    if not all(sc["stereo"][WFM_SETTLE:WFM_STEREO_BLOCKS]):
+        fail(f"wfm: stereo flag not held with the pilot on: {sc['stereo']}")
+    for side, s in sc["separation"].items():
+        if s["separation_db"] < 30.0:
+            fail(f"wfm: {side} separation {s['separation_db']} dB < 30 dB")
+    if sc["mono_after_blocks"] is None or sc["mono_after_blocks"] > 5 or any(sc["stereo"][-10:]):
+        fail(f"wfm: stereo flag did not fall within 5 blocks of the pilot's loss: {sc['stereo']}")
+    if abs(sc["mono_700_db"] - sc["mono_1100_db"]) > 1.0 or sc["mono_700_db"] < -40.0:
+        fail(f"wfm: mono tones {sc['mono_700_db']} dB (700 Hz), {sc['mono_1100_db']} dB (1100 Hz)")
+    if not sc["finite"] or sc["audio_shape"] != [8, 960, 2]:
+        fail(f"wfm: audio finite {sc['finite']}, shape {sc['audio_shape']}")
+
+
+def check_nbfm400_scene(sc: dict) -> None:
+    if abs(sc["peak_hz"] - 1000.0) > 10.0:
+        fail(f"nbfm400: channel {sc['channel']} audio peaks at {sc['peak_hz']} Hz, want 1000")
+    if not all(sc["send_carrier"][2:]):
+        fail(f"nbfm400: the carrier's channel did not keep its squelch open: {sc['send_carrier']}")
+    if any(sc["send_quiet"][8:]):
+        fail(f"nbfm400: the noise-only channel sends after warm-up: {sc['send_quiet']}")
+    if not sc["finite"] or sc["audio_shape"] != [400, 480]:
+        fail(f"nbfm400: audio finite {sc['finite']}, shape {sc['audio_shape']}")
+
+
+VHF_CONF = ROOT / "examples" / "radiod@2m.conf"
+VHF_FEED_FS = 5_120_000
+VHF_CENTER = 146_000_000.0
+VHF_SAM, VHF_ISB, VHF_SPEC = 146_415_000.0, 146_445_000.0, 146_200_000.0
+
+
+def vhf_config(dport: int, sport: int) -> tuple[str, list[str]]:
+    """examples/radiod@2m.conf with the changes listed in `reduced`: its
+    [vhf-feed] network stream becomes a silent sig_gen at the same rate and
+    centre (the blocks are built by vhf_block and handed to step_block), and
+    the streams go to local ports."""
+    import re
+
+    text = VHF_CONF.read_text()
+    feed = ("[vhf-feed]\ndevice = sig_gen\nsamprate = 5m12\nreal = no\nfrequency = 146m\n"
+            "carrier = 146m\namplitude = -200\n\n")
+    text, n = re.subn(r"\[vhf-feed\].*?(?=\n\[repeaters\])", feed, text, flags=re.S)
+    if n != 1:
+        fail("the 2 m config's [vhf-feed] section was not found")
+    text = text.replace("status = 2m.local", f"status = 127.0.0.1:{sport}")
+    text = text.replace("data = 2m-pcm.local", f"data = 127.0.0.1:{dport}")
+    text = text.replace("[global]\n", "[global]\nsap = no\nadvertise = no\n", 1)
+    reduced = [
+        "[vhf-feed]: device = rtp (2m-iq.local, complex 5.12 Msps at 146 MHz) -> the same rate "
+        "and centre built on the card (vhf_block): FM at 145.180 MHz with its 107.2 Hz tone, FM "
+        "at 146.700 MHz with 100.0 Hz (configured 103.5 Hz), then an unmodulated carrier 3 Hz "
+        "above 146.415 MHz, tones 1,000 Hz above and 1,500 Hz below 146.445 MHz and a carrier "
+        "500 Hz above 146.200 MHz, over noise of -130 dBFS/Hz",
+        f"data, status: 2m-pcm.local, 2m.local -> 127.0.0.1:{dport}, 127.0.0.1:{sport}",
+        "sap = no, advertise = no: no SAP or mDNS announcements (the run has no network)",
+    ]
+    return text, reduced
+
+
+def vhf_block(b: int, L: int, gen, device) -> torch.Tensor:
+    """Block b of the 2 m scene (see vhf_config's `reduced`): each FM
+    carrier has a 1 kHz tone at 2.5 kHz deviation and its CTCSS tone at
+    500 Hz deviation; the phases are exact in float64."""
+    t = (torch.arange(L, dtype=torch.float64, device=device) + b * L) / VHF_FEED_FS
+    tp = 2 * np.pi * t
+
+    def carrier(f_rf: float, amp: float, extra=0.0):
+        ph = torch.remainder((f_rf - VHF_CENTER) * t, 1.0) * (2 * np.pi) + extra
+        return amp * torch.polar(torch.ones_like(ph), ph)
+
+    x = 0
+    for f_rf, tone in ((145_180_000.0, 107.2), (146_700_000.0, 100.0)):
+        x = x + carrier(f_rf, 0.1, 2.5 * torch.sin(1000 * tp) + 500.0 / tone * torch.sin(tone * tp))
+    x = x + carrier(VHF_SAM + 3.0, 0.05)
+    x = x + carrier(VHF_ISB + 1000.0, 0.05) + carrier(VHF_ISB - 1500.0, 0.03)
+    x = x + carrier(VHF_SPEC + 500.0, 0.01)
+    std = float(np.sqrt(NBFM_N0 * VHF_FEED_FS / 2.0))
+    noise = torch.view_as_complex(std * torch.randn((L, 2), generator=gen, device=device))
+    return x.to(torch.complex64) + noise
+
+
+def _clone(a):
+    """a copy of a wrapper's argument: a tensor, a dict of them, or as is"""
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: _clone(v) for k, v in a.items()}
+    return a
+
+
+def vhf_daemon(device) -> tuple[dict, dict]:
+    """examples/radiod@2m.conf through Radiod on `device`: CTCSS open and
+    mute on the repeaters, then through handle_packet a switch of one
+    simplex channel to sam (PLL lock), one to isb (each sideband in its own
+    output column), a trace of 4 blocks (each kernel's time inside the
+    daemon) and a new 50 Hz spectrum channel, polled. The RTP is received on
+    127.0.0.1. Returns (the phase's JSON, the inputs of the last pll_scan
+    and goertzel_block launches, as recurrence_stand_in gives them)."""
+    import select
+    import socket
+
+    import ka9q_radio_tpu_torch.models.fm as fm_mod
+    import ka9q_radio_tpu_torch.models.linear as linear_mod
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, decode_status, encode_status
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    dport, sport = _free_port(), _free_port()
+    text, reduced = vhf_config(dport, sport)
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+    rx.bind(("127.0.0.1", dport))
+    rx.setblocking(False)
+    t0 = time.perf_counter()
+    rd = Radiod(load_config(text), use_network=True, data_port=dport, status_port=sport,
+                device=device)
+    t_init = time.perf_counter() - t0
+    by_freq = {c.freq: c for c in rd.chans.values()}
+    r0, r1 = by_freq[145_180_000.0], by_freq[146_700_000.0]
+    sam, isb = by_freq[VHF_SAM], by_freq[VHF_ISB]
+    pkts: dict[int, list] = {}  # ssrc -> [(seq, payload type, payload)]
+    statuses: list[bytes] = []
+    send_status = rd._send_status
+
+    def spy(pkt, ch=None):
+        statuses.append(pkt)
+        send_status(pkt, ch)
+
+    rd._send_status = spy
+
+    def drain():
+        while select.select([rx], [], [], 0)[0]:
+            h, payload = RtpHeader.unpack(rx.recv(65536))
+            pkts.setdefault(h.ssrc, []).append((h.seq, h.type, payload))
+
+    # the recurrences' wrappers as the demodulators call them, each call's
+    # inputs kept (the last one's), to hold the kernels at the daemon's shapes
+    seen: dict[str, tuple] = {}
+    wrapped = ((linear_mod, "cuda_pll_scan", "pll_scan"), (fm_mod, "cuda_goertzel_block", "goertzel"))
+    originals = {attr: getattr(mod, attr) for mod, attr, _ in wrapped}
+
+    def keep(attr: str, name: str):
+        def call(*args):
+            seen[name] = tuple(_clone(a) for a in args)
+            return originals[attr](*args)
+        return call
+
+    for mod, attr, name in wrapped:
+        setattr(mod, attr, keep(attr, name))
+
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def run(n: int):
+        for _ in range(n):
+            rd.step_block(block=vhf_block(rd.blocks, rd.engine.L, gen, device))
+            drain()
+
+    def audio(ssrc: int, nch: int = 1, skip: int = 0) -> np.ndarray:
+        got = sorted(pkts.get(ssrc, []))[skip:]
+        a = np.concatenate([np.frombuffer(p, ">i2") for _, _, p in got] or [np.zeros(0, ">i2")])
+        return a.astype(np.float64).reshape(-1, nch) / 32768.0
+
+    def status(ch) -> dict:
+        return decode_status(rd.encode_channel_status(ch))[1]
+
+    def cmd(fields: dict):
+        rd.handle_packet(encode_status(fields, cmd=True))
+        rd._finish_restock(wait=True)
+
+    cc.reset_launches()
+    t0 = time.perf_counter()
+    # CTCSS: two 240 ms integrations must agree on the tone's phase (fm.c:279-325)
+    run(40)
+    out = {"reduced": reduced, "init_s": t_init, "channels": len(rd.chans)}
+    a0, a1 = audio(r0.ssrc, skip=20), audio(r1.ssrc, skip=20)
+    s0, s1 = status(r0), status(r1)
+    out["ctcss"] = {
+        "open": {"freq": r0.freq, "tone": s0.get(T.PL_TONE), "packets": len(pkts.get(r0.ssrc, [])),
+                 "peak_hz": peak_hz(a0[:, 0], r0.samprate) if a0.size else None,
+                 "max_abs": float(np.abs(a0).max(initial=0)),
+                 "pl_deviation": s0.get(T.PL_DEVIATION)},
+        "muted": {"freq": r1.freq, "tone": s1.get(T.PL_TONE), "packets": len(pkts.get(r1.ssrc, [])),
+                  "max_abs": float(np.abs(a1).max(initial=0)),
+                  "pl_deviation": s1.get(T.PL_DEVIATION)}}
+    # a simplex channel to sam on its unmodulated carrier: PLL_LOCK within 100 blocks
+    cmd({T.OUTPUT_SSRC: sam.ssrc, T.COMMAND_TAG: 1, T.PRESET: "sam"})
+    lock_at = None
+    for b in range(100):
+        run(1)
+        if status(rd.chans[sam.ssrc]).get(T.PLL_LOCK):
+            lock_at = b + 1
+            break
+    st_sam = status(rd.chans[sam.ssrc])
+    out["sam"] = {"freq": sam.freq, "demod": rd.engine.groups[rd.chans[sam.ssrc].group].spec.demod,
+                  "lock_after_blocks": lock_at, "freq_offset_hz": st_sam.get(T.FREQ_OFFSET),
+                  "pll_wraps": st_sam.get(T.PLL_WRAPS)}
+    # another to isb: the tone above the dial in one output column, below in the other
+    cmd({T.OUTPUT_SSRC: isb.ssrc, T.COMMAND_TAG: 2, T.PRESET: "isb"})
+    n0 = len(pkts.get(isb.ssrc, []))
+    run(20)
+    ai = audio(isb.ssrc, nch=2, skip=n0 + 5)
+    cols = []
+    for c in range(2):
+        cols.append({"1000_db": tone_amp_db(ai[:, c], 1000.0, isb.samprate) if ai.size else None,
+                     "1500_db": tone_amp_db(ai[:, c], 1500.0, isb.samprate) if ai.size else None})
+    out["isb"] = {"freq": isb.freq, "channels": rd.chans[isb.ssrc].channels,
+                  "samples": int(ai.shape[0]), "columns": cols}
+    # each kernel's device time a launch inside 4 blocks: the repeaters'
+    # Goertzel and the sam channel's PLL run in every one
+    _, kern, _ = traced(lambda: run(4), "vhf_daemon")
+    out["kernel_in_daemon_ms"] = per_launch_ms(kern, KERNEL_NAMES + RECUR_NAMES)
+    # a new spectrum channel at 50 Hz, polled: the carrier's bin
+    cmd({T.OUTPUT_SSRC: 9001, T.COMMAND_TAG: 3, T.PRESET: "spectrum",
+         T.RADIO_FREQUENCY: VHF_SPEC, T.RESOLUTION_BW: 50.0, T.BIN_COUNT: 64})
+    run(2)
+    statuses.clear()
+    rd.handle_packet(encode_status({T.OUTPUT_SSRC: 9001, T.COMMAND_TAG: 4}, cmd=True))
+    bins = rbw = None
+    for _ in range(20):
+        run(1)
+        for p in statuses:
+            f = decode_status(p)[1]
+            if f.get(T.OUTPUT_SSRC) == 9001 and f.get(T.COMMAND_TAG) == 4 and T.BIN_DATA in f:
+                bins, rbw = np.asarray(f[T.BIN_DATA], np.float64), float(f[T.RESOLUTION_BW])
+        if bins is not None:
+            break
+    spec_g = rd.engine.groups[rd.chans[9001].group]
+    out["spectrum"] = {"freq": VHF_SPEC, "carrier_offset_hz": 500.0, "rbw": rbw,
+                       "narrowband": not spec_g.spectrum_wide,
+                       "bins": None if bins is None else int(bins.size),
+                       "peak_bin": None if bins is None else int(np.argmax(bins)),
+                       "want_bin": None if rbw is None else int(round(500.0 / rbw)),
+                       "peak_over_median_db": None if bins is None else
+                       float(10 * np.log10(bins.max() / max(np.median(bins), 1e-30)))}
+    out["blocks"] = rd.blocks
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = dict(cc.launches)
+    out["block_drops"] = rd.block_drops
+    for mod, attr, _ in wrapped:
+        setattr(mod, attr, originals[attr])
+    rx.close()
+    for edge_, _ in rd.edges.values():
+        edge_.close()
+    return out, seen
+
+
+def check_vhf_daemon(v: dict) -> None:
+    o, m = v["ctcss"]["open"], v["ctcss"]["muted"]
+    if o["peak_hz"] is None or abs(o["peak_hz"] - 1000.0) > 10.0 or o["max_abs"] < 0.01:
+        fail(f"vhf_daemon: the 107.2 Hz repeater did not open on its tone: {o}")
+    if m["max_abs"] != 0.0:
+        fail(f"vhf_daemon: the 103.5 Hz repeater sent audio on a 100.0 Hz tone: {m}")
+    if v["sam"]["demod"] != "linear" or v["sam"]["lock_after_blocks"] is None:
+        fail(f"vhf_daemon: the sam channel did not lock within 100 blocks: {v['sam']}")
+    c0, c1 = v["isb"]["columns"]
+    if v["isb"]["samples"] < 2000 or v["isb"]["channels"] != 2:
+        fail(f"vhf_daemon: isb output {v['isb']}")
+    sep = max(min(c0["1000_db"] - c0["1500_db"], c1["1500_db"] - c1["1000_db"]),
+              min(c0["1500_db"] - c0["1000_db"], c1["1000_db"] - c1["1500_db"]))
+    v["isb"]["separation_db"] = sep
+    if sep < 30.0:
+        fail(f"vhf_daemon: isb sidebands not in their own columns: {v['isb']}")
+    s = v["spectrum"]
+    if s["bins"] != 64 or not s["narrowband"] or s["peak_bin"] != s["want_bin"] \
+            or s["peak_over_median_db"] < 30.0:
+        fail(f"vhf_daemon: spectrum poll {s}")
+    if min(v["launches"].values()) <= 0:
+        fail(f"vhf_daemon: a kernel of the path was not launched: {v['launches']}")
 
 
 def main() -> None:
@@ -924,9 +1491,8 @@ def main() -> None:
     # kernel time inside the step (profiler) against the block time above
     split = stage_split(eng, params, device)
     busy = device_busy(eng, params, device, out_dir)
-    idle = (None if busy["busy_ms_per_block"] is None
-            else 1.0 - busy["busy_ms_per_block"] / tr["ms_per_block"])
-    emit({"phase": "stages", "card": card, **split, **busy, "device_idle_share": idle})
+    emit({"phase": "stages", "card": card, **split, **busy,
+          "device_idle_share": 1.0 - busy["busy_ms_per_block"] / tr["ms_per_block"]})
     for kern in kernels:
         kern["in_step_ms"] = busy["kernel_in_step_ms_per_launch"][kern["name"]]
 
@@ -936,6 +1502,88 @@ def main() -> None:
     for kern in kernels:
         kern["daemon_launches"] = at_daemon[kern["name"]]["launches"]
         kern["at_daemon"] = at_daemon[kern["name"]]
+    torch.cuda.empty_cache()
+
+    # phase 6: the kernels at the VHF shapes: A and B at nbfm400 (complex
+    # master, n = 600), B at wfm (W = 9,600), the two recurrences at a
+    # stand-in C = 400 (phase 9 holds them at the 2 m daemon's own shapes)
+    t0 = time.perf_counter()
+    veng = rt.Engine(samprate=VHF_FS, real=False, groups=nbfm400_groups(rt))
+    weng = rt.Engine(samprate=WFM_FS, real=False, groups=wfm_groups(rt))
+    vparams, wparams = veng.init_params(), weng.init_params()
+    t_build = time.perf_counter() - t0
+    _, F = master_fft(veng.master, veng.init_state()["master"],
+                      noise_blocks(veng, 1, NBFM_N0, device, 12)[0])
+    at_nbfm = {k["name"]: k for k in check_kernels(veng, vparams, F, "nbfm")}
+    _, F = master_fft(weng.master, weng.init_state()["master"],
+                      noise_blocks(weng, 1, NBFM_N0, device, 13)[0])
+    at_wfm = {k["name"]: k for k in check_kernels(weng, wparams, F, "wfm")}
+    if set(at_wfm) != {"noise_est"}:
+        fail(f"wfm: kernels {sorted(at_wfm)}, want noise_est alone (the FFT-IDFT channelizer)")
+    del F
+    recur_c400 = check_recurrences(recurrence_stand_in(device))
+    keys = ("max_abs_err", "err_bound", "max_rel_err", "keys_equal", "ms", "plain_ms", "call_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call", "bytes", "ops", "shape")
+    emit({"phase": "vhf_kernels", "card": card, "engines_s": t_build,
+          "nbfm400": {n: {k: v[k] for k in keys if k in v} for n, v in at_nbfm.items()},
+          "wfm": {n: {k: v[k] for k in keys if k in v} for n, v in at_wfm.items()},
+          "recurrences_c400": recur_c400})
+    for kern in kernels:
+        kern["at_nbfm400"] = {k: at_nbfm[kern["name"]][k] for k in keys if k in at_nbfm[kern["name"]]}
+    kernels[1]["at_wfm"] = {k: at_wfm["noise_est"][k] for k in keys if k in at_wfm["noise_est"]}
+
+    # phase 7: nbfm400 through Engine.step: a 1 kHz FM tone, a quiet channel,
+    # then 64 timed blocks and the device's busy share
+    sc = nbfm400_scene(veng, vparams, device)
+    check_nbfm400_scene(sc)
+    if sc["launches"]["channelize"] != sc["blocks"] or sc["launches"]["noise_est"] != sc["due_blocks"]:
+        fail(f"nbfm400: launches {sc['launches']}, want channelize {sc['blocks']}, "
+             f"noise_est {sc['due_blocks']}")
+    tv = timed_run(veng, vparams, device, n0=NBFM_N0)
+    busy = device_busy(veng, vparams, device, out_dir, n0=NBFM_N0, trace="nbfm400_trace.json")
+    emit({"phase": "nbfm400", "card": card, "config": "bench.py nbfm400", "scene": sc,
+          "timed": tv, **busy,
+          "device_idle_share": 1.0 - busy["busy_ms_per_block"] / tv["ms_per_block"]})
+    if not tv["finite"] or tv["launches"]["channelize"] != tv["blocks"]:
+        fail(f"nbfm400 timed run: launches {tv['launches']}, finite {tv['finite']}")
+    for kern in kernels:
+        kern["at_nbfm400"].update(launches=sc["launches"][kern["name"]],
+                                  in_step_ms=busy["kernel_in_step_ms_per_launch"][kern["name"]])
+    del veng, vparams
+    torch.cuda.empty_cache()
+
+    # phase 8: wfm through Engine.step: stereo separation, the mono fallback
+    ws = wfm_scene(weng, wparams, device)
+    check_wfm_scene(ws)
+    if ws["launches"]["noise_est"] != ws["due_blocks"] or ws["launches"]["channelize"] != 0:
+        fail(f"wfm: launches {ws['launches']}, want noise_est {ws['due_blocks']} and the "
+             "FFT-IDFT channelizer")
+    tw = timed_run(weng, wparams, device, n0=NBFM_N0)
+    busy = device_busy(weng, wparams, device, out_dir, n0=NBFM_N0, trace="wfm_trace.json")
+    emit({"phase": "wfm", "card": card, "config": "bench.py wfm", "scene": ws, "timed": tw,
+          **busy, "device_idle_share": 1.0 - busy["busy_ms_per_block"] / tw["ms_per_block"]})
+    if not tw["finite"]:
+        fail("wfm timed run: non-finite audio")
+    kernels[1]["at_wfm"].update(launches=ws["launches"]["noise_est"],
+                                in_step_ms=busy["kernel_in_step_ms_per_launch"]["noise_est"])
+    del weng, wparams
+    torch.cuda.empty_cache()
+
+    # phase 9: the 2 m daemon: CTCSS, a sam lock, ISB, a narrowband spectrum;
+    # then the recurrences against their plain loops on the inputs of their
+    # last launches there (the daemon's own C and T)
+    vd, seen = vhf_daemon(device)
+    check_vhf_daemon(vd)
+    recur = check_recurrences(seen)
+    emit({"phase": "vhf_daemon", "card": card, "config": str(VHF_CONF.relative_to(ROOT)), **vd,
+          "recurrences_at_daemon": recur})
+    for kern in kernels:
+        kern["vhf_daemon_launches"] = vd["launches"][kern["name"]]
+        kern["vhf_daemon_in_ms"] = vd["kernel_in_daemon_ms"][kern["name"]]
+    for name, kern in recur.items():
+        kern.update(launches=vd["launches"][name], in_daemon_ms=vd["kernel_in_daemon_ms"][name],
+                    at_c400=recur_c400[name])
+    kernels += list(recur.values())
 
     if "jax" in sys.modules or any(n == "ka9q_radio_tpu" or n.startswith("ka9q_radio_tpu.")
                                    for n in sys.modules):

@@ -23,7 +23,8 @@
 //     128-bin boundaries and a complex master wraps only at whole tiles),
 //     W / 32 keys a lane held in registers (32 at W = 1024) and sorted there
 //     by a bitonic network; above W = 2048 they go to the warp's slice of
-//     shared memory instead, unsorted;
+//     shared memory instead, unsorted (up to W = 14,464: four warps' keys
+//     in 227 KB);
 //   - each bisection step is a per-lane count and one __reduce_add_sync:
 //     on sorted registers the count is log2(W / 32) + 1 compares and
 //     selects (halving a window of the lane's keys), not W / 32 compares
@@ -248,8 +249,13 @@ int launch(const float2* F, long long m_bins, int real_master, const int* sh, in
 
 }  // namespace
 
+// The largest window: above W = 2048 each of a CTA's warps keeps its W keys
+// in shared memory, and four of them must fit in the 227 KB a CTA can have
+// (W = 9,600 for the 9,600-bin WFM slice of a 7.68 Msps master).
+constexpr int kMaxW = 232448 / (kWarps * 4) / 128 * 128;
+
 // All pointers are device pointers, F 16-byte aligned; stream is a
-// cudaStream_t. W is a multiple of 128, at most 4096. Returns the
+// cudaStream_t. W is a multiple of 128, at most kMaxW (14,464). Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int ka9q_noise_est(const void* F, long long m_bins, int real_master,
                               const void* shifts, int C, int W, int i_idx, int has_next,
@@ -260,7 +266,7 @@ extern "C" int ka9q_noise_est(const void* F, long long m_bins, int real_master,
   float* out = (float*)n0;
   int* k = (int*)keys;
   cudaStream_t st = (cudaStream_t)stream;
-  if (W % 128 || W > 4096) return (int)cudaErrorInvalidValue;
+  if (W % 128 || W > kMaxW) return (int)cudaErrorInvalidValue;
 #define KA9Q_NOISE_LAUNCH(KPL) \
   launch<KPL>(f, m_bins, real_master, sh, C, W, i_idx, has_next, w_lo, w_hi, cutoff, corr, denom, out, k, st)
   if (W <= 128) return KA9Q_NOISE_LAUNCH(4);

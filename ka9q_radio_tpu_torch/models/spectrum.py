@@ -1,16 +1,21 @@
-"""Spectrum-analysis pseudo-demodulator (spectrum.c), wideband algorithm.
+"""Spectrum-analysis pseudo-demodulator (spectrum.c), both algorithms.
 
-The wideband algorithm (spectrum.c:317-531) takes windowed FFTs straight off
-the raw A/D stream; the engine uses it when the resolution bandwidth is
-coarser than the crossover (default 200 Hz, modes.c:69), so the analysis FFT
-is small. The frame schedule is static — `frames_per_block = L // hop`
-windowed FFTs per block — and polls read the continuously maintained
-average. Averaging is a per-frame EMA with alpha = 1/fft_avg after a boxcar
-warm-up of fft_avg frames, the streaming equivalent of the reference's
-boxcar of `fft_avg` FFTs (modes.c:73).
+Narrowband (spectrum.c:128-315): the channel's downconverted baseband is
+kept in a rolling context, windowed complex FFTs of size fft_n = samprate/rbw
+are taken with configurable overlap, and their bin powers averaged. The frame
+schedule is static: `frames_per_block = olen // hop` windowed FFTs per block,
+batched over channels. Bin powers are kept lowest-frequency-first, centred on
+the channel tuning, scaled so a full-scale carrier centred in a bin reads 1.0
+(the daemon rotates them to FFT order for the BIN_DATA wire key).
 
-The narrowband algorithm (downconverted baseband) is a later slice of the
-port.
+Wideband (spectrum.c:317-531): windowed FFTs straight off the raw A/D
+stream; the engine uses it when the resolution bandwidth is at or above the
+crossover (default 200 Hz, modes.c:69), so the analysis FFT is small.
+
+Both average per frame: a boxcar over the first fft_avg frames, then an EMA
+with alpha = 1/fft_avg, the streaming equivalent of the reference's boxcar of
+`fft_avg` FFTs (modes.c:73). Which of the two a block runs is decided on the
+host mirror of the frame count, so no block reads a device value.
 """
 from __future__ import annotations
 
@@ -21,8 +26,102 @@ import torch
 
 from ..ops.windows import make_window, window_noise_bandwidth
 
-__all__ = ["WideGeometry", "wide_geometry", "wide_constants", "wide_init", "wide_accumulate",
-           "wide_extract"]
+__all__ = ["SpectrumGeometry", "spectrum_geometry", "spectrum_constants", "spectrum_init",
+           "spectrum_accumulate", "WideGeometry", "wide_geometry", "wide_constants", "wide_init",
+           "wide_accumulate", "wide_extract"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectrumGeometry:
+    samprate: int  # baseband rate the FFTs run at
+    olen: int  # baseband samples per block
+    fft_n: int
+    hop: int  # samples between frame starts (fft_n*(1-overlap))
+    bin_count: int
+    fft_avg: int
+    window: np.ndarray  # [fft_n] float32, unit coherent gain
+
+    @property
+    def frames_per_block(self) -> int:
+        return self.olen // self.hop
+
+    @property
+    def carry(self) -> int:
+        """Samples carried between blocks (frame context)."""
+        return self.fft_n - self.hop
+
+    @property
+    def rbw(self) -> float:
+        return self.samprate / self.fft_n
+
+    @property
+    def noise_bw(self) -> float:
+        """Window equivalent noise bandwidth, Hz (spectrum.c:608-614)."""
+        return window_noise_bandwidth(self.window) * self.rbw
+
+
+def spectrum_geometry(samprate: int, olen: int, bin_bw: float, bin_count: int,
+                      window: str = "kaiser", window_param: float = 7.0, fft_avg: int = 10,
+                      overlap: float = 0.0) -> SpectrumGeometry:
+    """Size the frame schedule. fft_n is rounded so hop divides olen evenly
+    (the static-schedule analog of the reference's clean-rate rounding)."""
+    fft_n = max(int(round(samprate / bin_bw)), bin_count)
+    frac = max(1.0 - overlap, 1.0 / 8)
+    hop = max(int(round(fft_n * frac)), 1)
+    # round hop to a divisor of olen so every block runs the same frame count
+    divisors = [d for d in range(1, olen + 1) if olen % d == 0]
+    hop = min(divisors, key=lambda d: abs(d - hop))
+    fft_n = max(int(round(hop / frac)), bin_count)
+    w = make_window(window, fft_n, window_param).astype(np.float64)
+    w = w / w.sum()  # unit coherent gain: full-scale carrier in-bin -> 1.0
+    return SpectrumGeometry(samprate=samprate, olen=olen, fft_n=fft_n, hop=hop,
+                            bin_count=bin_count, fft_avg=fft_avg, window=w.astype(np.float32))
+
+
+def _ema_constants(nf: int, fft_avg: int, device) -> dict:
+    """The steady-state EMA of one block's nf frames in closed form:
+    pw' = (1-a)^nf pw + sum_k a (1-a)^(nf-1-k) p_k, nf EMA steps exactly."""
+    alpha = np.float32(1.0 / fft_avg)
+    wts = alpha * (1.0 - alpha) ** np.arange(nf - 1, -1, -1, dtype=np.float64)
+    return {"steady": torch.as_tensor(wts.astype(np.float32), device=device),
+            "decay": float(np.float32((1.0 - alpha) ** nf))}
+
+
+def spectrum_constants(geo: SpectrumGeometry, device=None) -> dict:
+    """Device constants of the narrowband algorithm, made once per group:
+    the window, the centred bin slice and the steady EMA weights."""
+    idx = (np.arange(geo.bin_count) - geo.bin_count // 2) % geo.fft_n
+    return {"window": torch.as_tensor(geo.window, device=device),
+            "idx": torch.as_tensor(idx.astype(np.int64), device=device),
+            **_ema_constants(geo.frames_per_block, geo.fft_avg, device)}
+
+
+def spectrum_init(C: int, geo: SpectrumGeometry, device=None) -> dict:
+    return {
+        "carry": torch.zeros((C, geo.carry), dtype=torch.complex64, device=device),
+        "power": torch.zeros((C, geo.bin_count), dtype=torch.float32, device=device),
+        "frames": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def spectrum_accumulate(state, bb: torch.Tensor, geo: SpectrumGeometry, consts: dict,
+                        nstart: int):
+    """Fold one block of baseband into the running bin-power average.
+
+    bb: [C, olen] complex64; consts: spectrum_constants(geo) on bb's device;
+    nstart: host mirror of state["frames"]. Returns (new_state, bin_power
+    [C, bin_count]), lowest frequency first.
+    """
+    C, olen = bb.shape
+    data = torch.cat([state["carry"], bb], dim=1)  # [C, carry+olen]
+    nf = geo.frames_per_block
+    frames = data.unfold(1, geo.fft_n, geo.hop)[:, :nf] * consts["window"]
+    X = torch.fft.fft(frames)  # [C, nf, fft_n]
+    p = X.real * X.real + X.imag * X.imag
+    pwr = _fold_frames(state["power"], nstart, p[:, :, consts["idx"]].transpose(0, 1),
+                       geo.fft_avg, consts)
+    new_state = {"carry": data[:, olen:], "power": pwr, "frames": state["frames"] + nf}
+    return new_state, pwr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,15 +190,8 @@ def wide_constants(geo: WideGeometry, device=None) -> dict:
     """Device constants of the wide algorithm, made once per group so the
     per-block path copies nothing from the host: the analysis window and
     the steady-state EMA weights of one block's frames."""
-    nf = geo.frames_per_block
-    alpha = np.float32(1.0 / geo.fft_avg)
-    # pw' = (1-a)^nf pw + sum_k a (1-a)^(nf-1-k) p_k  — nf EMA steps exactly
-    wts = alpha * (1.0 - alpha) ** np.arange(nf - 1, -1, -1, dtype=np.float64)
-    return {
-        "window": torch.as_tensor(geo.window, device=device),
-        "steady": torch.as_tensor(wts.astype(np.float32), device=device),
-        "decay": float(np.float32((1.0 - alpha) ** nf)),
-    }
+    return {"window": torch.as_tensor(geo.window, device=device),
+            **_ema_constants(geo.frames_per_block, geo.fft_avg, device)}
 
 
 def _fold_frames(power: torch.Tensor, nstart: int, p: torch.Tensor, fft_avg: int,

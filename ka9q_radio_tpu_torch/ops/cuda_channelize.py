@@ -5,6 +5,11 @@ Counterpart of ka9q_radio_tpu/ops/pallas_channelize.py:
   cuda_channelize  csrc/channelize.cu   replaces pallas_channelize
   cuda_noise_est   csrc/noise_est.cu    replaces pallas_noise_est
 
+The loader here also builds and binds csrc/recur.cu, the demodulators'
+per-sample recurrences (pll_scan, goertzel), whose wrappers are in
+ops/cuda_recur.py; those are not TPU kernels (the JAX package runs them as
+lax.scan).
+
 The kernels compute what the plain PyTorch versions compute
 (ops/filterbank.py `tiled_channelize`; ops/noise.py `gather_noise_bins` +
 `estimate_noise_keys`), not the TPU mechanics: no span window, no one-hot
@@ -59,11 +64,18 @@ _KERNELS = {
                    [_V, _LL, _I, _I, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _V, _V]),
     "noise_est": ("noise_est.cu", "ka9q_noise_est",
                   [_V, _LL, _I, _V, _I, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]),
+    "pll_scan": ("recur.cu", "ka9q_pll_scan", [_V, _I, _I] + [_V] * 16),
+    "goertzel": ("recur.cu", "ka9q_goertzel_block", [_V, _I, _I] + [_V] * 6),
 }
+# per-source flags beyond _NVCC_FLAGS: the recurrences round every operation
+# on its own, as their plain versions do (csrc/recur.cu)
+_SRC_FLAGS = {"recur.cu": ("-fmad=false",)}
 SOURCES = {name: f"ka9q_radio_tpu_torch/csrc/{src}" for name, (src, _, _) in _KERNELS.items()}
 REPLACES = {
     "channelize": "ka9q_radio_tpu/ops/pallas_channelize.py:165 (pallas_channelize; pallas_call at :214)",
     "noise_est": "ka9q_radio_tpu/ops/pallas_channelize.py:286 (pallas_noise_est; pallas_call at :324)",
+    "pll_scan": "ka9q_radio_tpu/models/linear.py:66-89 (the PLL's lax.scan; not a TPU kernel)",
+    "goertzel": "ka9q_radio_tpu/ops/iir.py:172-177 (the Goertzel's lax.scan; not a TPU kernel)",
 }
 
 # kernel A's tiling (csrc/channelize.cu): K chunk and column tile
@@ -88,32 +100,33 @@ def _nvcc() -> str:
 def build() -> dict:
     """Build (or find built) every kernel library and load it.
 
-    Returns {"seconds": wall time, "built": names compiled now, "log": nvcc
-    output per name}. Raises if a build fails.
+    Returns {"seconds": wall time, "built": sources compiled now, "log":
+    nvcc output per source}. Raises if a build fails.
     """
     t0 = time.perf_counter()
     nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, libs, log = {}, {}, {}
-    for name, (src, _, _) in _KERNELS.items():
+    for src in dict.fromkeys(src for src, _, _ in _KERNELS.values()):
+        flags = (*_NVCC_FLAGS, *_SRC_FLAGS.get(src, ()))
         text = (_CSRC / src).read_bytes()
-        key = hashlib.sha256(text + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib = _BUILD_DIR / f"lib{name}-{key}.so"
-        libs[name] = lib
+        key = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+        lib = _BUILD_DIR / f"lib{Path(src).stem}-{key}.so"
+        libs[src] = lib
         if not lib.exists():
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)]
-            jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True))
-    for name, (tmp, proc) in jobs.items():
+            cmd = [nvcc, *flags, "-o", str(tmp), str(_CSRC / src)]
+            jobs[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True))
+    for src, (tmp, proc) in jobs.items():
         out, _ = proc.communicate()
-        log[name] = out
+        log[src] = out
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{out}")
-        os.replace(tmp, libs[name])
-    for name, (_, entry, argtypes) in _KERNELS.items():
+            raise RuntimeError(f"nvcc failed for {src} (rc {proc.returncode}):\n{out}")
+        os.replace(tmp, libs[src])
+    for name, (src, entry, argtypes) in _KERNELS.items():
         if name not in _loaded:
-            fn = getattr(ctypes.CDLL(str(libs[name])), entry)
+            fn = getattr(ctypes.CDLL(str(libs[src])), entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[name] = fn
@@ -238,7 +251,8 @@ def cuda_noise_est(F: torch.Tensor, shifts: torch.Tensor, nbins: int, real_maste
     """Noise floor of every channel: (n0 [C] float32, keys [C, 2] int32),
     the keys being the int32 views of the two order statistics. Equals
     noise.estimate_noise_keys(noise.gather_noise_bins(...)) (its plain
-    version)."""
+    version). The kernel takes windows up to csrc/noise_est.cu's kMaxW
+    bins; its launch fails (cudaErrorInvalidValue) beyond."""
     m_bins = master_N // 2 + 1 if real_master else master_N
     if F.device.type == "cpu":
         return estimate_noise_keys(gather_noise_bins(F, shifts, nbins, real_master, master_N),
@@ -249,8 +263,6 @@ def cuda_noise_est(F: torch.Tensor, shifts: torch.Tensor, nbins: int, real_maste
         raise NotImplementedError(
             "per-element noise windows (small or odd masters) are a later slice of the port")
     W = -(-nbins // _CTILE) * _CTILE
-    if W > 4096:
-        raise ValueError(f"noise window of {W} bins exceeds the kernel's 4096")
     C = shifts.shape[0]
     dev = F.device
     _check(F, "F", torch.complex64, (m_bins,), dev)

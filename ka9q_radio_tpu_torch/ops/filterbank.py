@@ -187,12 +187,18 @@ def build_tile_params(responses: np.ndarray, shifts: np.ndarray, real_master: bo
 
 
 def tiled_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Tensor,
-                     slope: torch.Tensor, shifts: torch.Tensor, E: torch.Tensor,
+                     slope: torch.Tensor, shifts: torch.Tensor, E: torch.Tensor | None,
                      n_bins: int, olen: int, real_master: bool, master_N: int) -> torch.Tensor:
     """Plain PyTorch tiled channelizer (see module docstring).
 
     F: [m_bins] complex64; resp_tiles [C, S] c64, tile_lo/slope/shifts [C]
-    int32 (from build_tile_params); E [S, olen] c64 (tiled_idft_matrix).
+    int32 (from build_tile_params); E [S, olen] c64 (tiled_idft_matrix), or
+    None for the FFT-IDFT form of wideband slices (WFM's 9,600-bin composite,
+    whose [S, olen] constant would take hundreds of MB): E'[j, t] is periodic
+    in j with period n_bins, so the padded frame folds S -> n_bins (valid
+    while S - n_bins <= n_bins), rotates by n_bins//2 (natural -> FFT order)
+    and goes through one batched inverse FFT (cuFFT on the card); the
+    engine calls this form directly, on the card too.
     Returns [C, olen] complex64 baseband (before fine tuning).
     """
     T = _CTILE
@@ -211,7 +217,16 @@ def tiled_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.T
         rows = F.reshape(-1, T)
         tidx = torch.remainder(lo + t_idx, m_bins // T)
     cover = rows[tidx].reshape(C, S)
-    Y = (cover * resp_tiles) @ E
+    x = cover * resp_tiles
+    if E is None:
+        n = n_bins
+        if S - n > n:
+            raise ValueError(f"the FFT-IDFT fold needs S - n_bins <= n_bins (S {S}, n {n})")
+        y = x[:, :n].clone()
+        y[:, : S - n] += x[:, n:]
+        Y = torch.fft.ifft(torch.roll(y, -(n // 2), dims=-1))[:, n - olen:]
+    else:
+        Y = x @ E
     if real_master:
         Y = torch.where((shifts < 0)[:, None], Y.conj(), Y)
     t_abs = torch.arange(n_bins - olen, n_bins, dtype=torch.int64, device=F.device)[None, :]

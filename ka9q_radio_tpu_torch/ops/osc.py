@@ -11,11 +11,13 @@ product runs in int64 and is folded back to a wrapped int32 explicitly
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 __all__ = ["rev_to_q32", "wrap_i32", "q32_to_rev", "cis_q32",
-           "phase_ramp_q32", "pll_init"]
+           "phase_ramp_q32", "pll_params", "pll_init", "pll_step"]
 
 _TWO_POW_32 = float(2**32)
 _Q32_TO_REV = float(np.float32(2.0**-32))  # int32 -> revolutions in [-0.5, 0.5)
@@ -64,13 +66,51 @@ def phase_ramp_q32(acc_q32: torch.Tensor, inc_q32: torch.Tensor, n: int):
     return cis_q32(q), wrap_i32(acc + inc * n)
 
 
+def pll_params(bw: torch.Tensor, damping: float = float(1.0 / np.sqrt(2.0))):
+    """Loop constants (K1, K2) of the type-2 PLL from its bandwidth
+    (cycles/sample) and damping, in float32 (set_pll_params, osc.c:153-168)."""
+    bw = bw.to(torch.float32).abs()
+    damping = float(np.float32(damping))
+    denom = float(np.float32(damping + np.float32(1.0) / (np.float32(4.0) * np.float32(damping))))
+    theta = 4.0 * math.pi * bw / denom
+    D = 1.0 + 2.0 * damping * theta + theta * theta
+    return 4.0 * damping * theta / D, 4.0 * theta * theta / D
+
+
 def pll_init(shape=(), device=None):
     """Fresh PLL state: VCO phase (Q32), integrator u (cycles/sample), phase
-    phi and wrap counter. Carried by linear groups; the PLL itself is a
-    later slice of the port."""
+    phi and wrap counter."""
     return {
         "vco_phase": torch.zeros(shape, dtype=torch.int32, device=device),
         "u": torch.zeros(shape, dtype=torch.float32, device=device),
         "phi": torch.zeros(shape, dtype=torch.float32, device=device),
         "wraps": torch.zeros(shape, dtype=torch.int32, device=device),
     }
+
+
+# the VCO step is clipped just inside +-0.5 rev so f32 -> int32 cannot overflow
+_VCO_HALF = float(np.float32(0.49999997))
+
+
+def pll_step(state: dict, phase_err: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+             lower_limit: float = -0.5, upper_limit: float = 0.5):
+    """One PLL sample update, phase_err in revolutions (osc.c:175-206).
+
+    Returns (new_state, u): u is the integrated frequency in cycles/sample.
+    The VCO step dphi truncates to a Q32 word (f32 -> int32 toward zero) and
+    the phase word wraps mod 2^32.
+    """
+    u_new = state["u"] + k2 * phase_err
+    dphi = u_new + k1 * phase_err
+    over = dphi > upper_limit
+    under = dphi < lower_limit
+    # freeze the integrator when pushing past a clamped VCO limit
+    u_new = torch.where(over & (phase_err > 0), state["u"], u_new)
+    u_new = torch.where(under & (phase_err < 0), state["u"], u_new)
+    dphi = torch.clamp(dphi, lower_limit, upper_limit)
+    phi = state["phi"] + dphi
+    wraps = state["wraps"] + (phi > 1.0).to(torch.int32) - (phi < -1.0).to(torch.int32)
+    phi = torch.where(phi > 1.0, phi - 1.0, torch.where(phi < -1.0, phi + 1.0, phi))
+    vco_step = (torch.clamp(dphi, -_VCO_HALF, _VCO_HALF) * _TWO_POW_32).to(torch.int32)
+    vco = wrap_i32(state["vco_phase"].to(torch.int64) + vco_step.to(torch.int64))
+    return {"vco_phase": vco, "u": u_new, "phi": phi, "wraps": wraps}, u_new

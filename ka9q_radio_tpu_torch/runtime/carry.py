@@ -3,8 +3,10 @@
 `params_from_jax` and `state_from_jax` turn the JAX engine's params and
 state trees, fetched to numpy (jax.device_get), into the port's tensors, so
 both packages compute from the same starting point. The state's host
-mirrors (block counter, warm-up countdowns, wide-spectrum frame counts) are
-read from the numpy values here, once, off the hot path.
+mirrors (block counter, warm-up countdowns, the wide and narrowband
+spectrum groups' frame counts) are read from the numpy values here, once,
+off the hot path. Every demodulator's state tree (linear with its PLL, FM
+with its Goertzel, WFM, both spectra) carries over leaf for leaf.
 """
 from __future__ import annotations
 

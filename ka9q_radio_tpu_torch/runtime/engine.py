@@ -24,16 +24,19 @@ Per-block per-group pipeline (downconvert(), radio.c:1451-1562):
   -> tiled channelizer (CUDA kernel, ops/cuda_channelize.py)
   -> N0 estimate on its cadence (CUDA kernel) + EMA smoothing
   -> fine-tune Q32 NCO + Renfors block phase adjustment
-  -> linear (SSB) demodulator; or, for a wide spectrum group, windowed FFTs
-     of the raw block averaged into bins.
+  -> optional filter2 cascade (a second overlap-save stage at the output
+     rate) with the ISB unpack
+  -> demodulator: linear (SSB/CW, PLL for SAM/DSB, envelope for AM, stereo
+     I/Q), NBFM with CTCSS, WFM stereo with RDS, or narrowband spectrum; a
+     wide spectrum group takes windowed FFTs of the raw block instead.
 
-This port runs one device and one input: the linear SSB path with
-squelch-gated egress compaction, the wide spectrum, and the daemon's table
-surgery (retune and set_edges write rows in place; adopt_host_params and
+This port runs one device and one input: every demodulator of the JAX
+package, squelch-gated egress compaction, and the daemon's table surgery
+(retune and set_edges write rows in place; adopt_host_params and
 migrate_state carry a rebuilt channel table's params and state), with
-adaptive spur notches on the master bins. FM/WFM, PLL/envelope/stereo
-linear, the narrowband spectrum, filter2/ISB, beamforming and multiple
-inputs are later slices and raise NotImplementedError (the daemon refuses
+adaptive spur notches on the master bins. Beamforming, multiple inputs and
+the per-element channelizers of small or odd masters are later slices and
+raise NotImplementedError naming their ROADMAP item (the daemon refuses
 mesh = yes, another later slice).
 """
 from __future__ import annotations
@@ -56,12 +59,17 @@ from ..ops.filterbank import (
     master_fft,
     master_init,
     tile_plan,
+    tiled_channelize,
     tiled_idft_matrix,
 )
 from ..ops.noise import MIN_NOISE_BINS, POWER_ALPHA, noise_window_fits
 from ..ops.osc import rev_to_q32
-from ..models.linear import check_linear_flags, linear_demod, linear_init
-from ..models.spectrum import wide_accumulate, wide_constants, wide_extract, wide_geometry, wide_init
+from ..models.fm import fm_demod, fm_init
+from ..models.linear import linear_demod, linear_init
+from ..models.spectrum import (spectrum_accumulate, spectrum_constants, spectrum_geometry,
+                               spectrum_init, wide_accumulate, wide_constants, wide_extract,
+                               wide_geometry, wide_init)
+from ..models.wfm import AUDIO_SAMPRATE, wfm_constants, wfm_demod, wfm_design, wfm_geometry, wfm_init
 from ..utils.device import resolve_device, to_tensors
 from ..utils.units import dB_to_power, dB_to_voltage
 
@@ -86,6 +94,7 @@ DEFAULTS = dict(
 )
 
 _COMPOSITE_SAMPRATE = 384_000  # WFM composite rate (wfm.c:22)
+_IDFT_BYTES = 32 << 20  # above this [S, olen] constant, the FFT-IDFT channelizer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,33 +192,15 @@ def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is a later slice of the port")
 
 
-# where each part the port does not carry yet is ported (ROADMAP Queue 1)
-_SLICES = {
-    "fm": "item 13 (FM)", "wfm": "item 14 (WFM)",
-    "linear": "item 11 (PLL/envelope/stereo linear)",
-    "filter2": "item 14 (the filter2/ISB cascade)", "beam": "item 15 (beamforming)",
-    "narrowband": "item 12 (the narrowband spectrum)", "inputs": "item 16 (multi-input)",
-}
-
-
 def check_spec(spec: GroupSpec) -> None:
-    """Raise NotImplementedError, naming the later slice, for a group this
+    """Raise NotImplementedError, naming its ROADMAP item, for a group this
     port does not carry yet (the daemon refuses such a command up front)."""
-    if spec.demod not in ("linear", "spectrum"):
-        raise _later(f"the {spec.demod} demodulator, ROADMAP {_SLICES.get(spec.demod, 'Queue 1')},")
-    if spec.demod == "linear":
-        try:
-            check_linear_flags(spec.enable_pll, spec.envelope, spec.stereo)
-        except NotImplementedError as e:
-            raise NotImplementedError(f"{e}, ROADMAP {_SLICES['linear']}") from None
-    if spec.filter2 > 0 or spec.isb:
-        raise _later(f"the filter2/ISB cascade, ROADMAP {_SLICES['filter2']},")
+    if spec.demod not in ("linear", "fm", "wfm", "spectrum"):
+        raise ValueError(f"group {spec.name}: unknown demod {spec.demod!r}")
     if spec.beam:
-        raise _later(f"beamforming, ROADMAP {_SLICES['beam']},")
-    if spec.demod == "spectrum" and spec.bin_bw < spec.crossover:
-        raise _later(f"the narrowband spectrum, ROADMAP {_SLICES['narrowband']},")
+        raise _later("beamforming, ROADMAP item 15,")
     if spec.input != 0 or any(c.input not in (None, 0) for c in spec.channels):
-        raise _later(f"multi-input, ROADMAP {_SLICES['inputs']},")
+        raise _later("multi-input, ROADMAP item 16,")
 
 
 class _Group:
@@ -242,28 +233,50 @@ class _Group:
         # with the EMA coefficient compounded to keep the time constant
         self.noise_every = max(1, int(noise_every))
         self.noise_alpha = float(1.0 - (1.0 - POWER_ALPHA) ** self.noise_every)
-        # spectrum groups take the wide algorithm (spectrum.c, modes.c:69):
-        # check_spec refuses the narrowband one
-        self.spectrum_wide = spec.demod == "spectrum"
+        if spec.demod == "wfm":
+            self.wfm_geo = wfm_geometry(blocktime)
+            self.wfm_responses = wfm_design(self.wfm_geo, spec.kaiser_beta)
+            self.wfm_consts = wfm_constants(self.wfm_geo, self.wfm_responses, device)
+        if spec.filter2 > 0 or spec.isb:
+            # filter2 cascade (radio.c:1543-1554): power-of-2 FFT at the output rate
+            self.f2_L = self.olen
+            self.f2_N = 1 << int(np.ceil(np.log2(max(2 * self.f2_L, 2))))
+            self.f2_M = self.f2_N - self.f2_L + 1
+        else:
+            self.f2_N = 0
+        # spectrum algorithm crossover (spectrum.c, modes.c:69): coarse rbw
+        # reads the raw A/D block, fine rbw the downconverted baseband
+        self.spectrum_wide = spec.demod == "spectrum" and spec.bin_bw >= spec.crossover
         if self.spectrum_wide:
             self.wide_geo = wide_geometry(
                 self.fs_in, master.L, master.real, spec.bin_bw, spec.spectrum_window,
                 spec.spectrum_window_param, spec.fft_avg, spec.spectrum_overlap)
             self.wide_consts = wide_constants(self.wide_geo, device)
-        # every linear group takes the tiled channelizer (the CUDA kernel);
-        # the per-element gather paths are a later slice
-        self.tiled = spec.demod == "linear"
+        elif spec.demod == "spectrum":
+            self.spectrum_geo = spectrum_geometry(
+                r, self.olen, spec.bin_bw, spec.bin_count, spec.spectrum_window,
+                spec.spectrum_window_param, spec.fft_avg, spec.spectrum_overlap)
+            self.spectrum_consts = spectrum_constants(self.spectrum_geo, device)
+        # every other group takes the tiled channelizer: kernel A with the
+        # [S, olen] IDFT constant, or past _IDFT_BYTES of constant (WFM's
+        # 9,600-bin slice) the FFT-IDFT form on cuFFT; the per-element
+        # gathers of small or odd masters are a later slice
+        self.tiled = not self.spectrum_wide
+        self.tile_E = self.tile_op = None
         if self.tiled:
             S = tile_plan(self.n_bins) * _CTILE
             if not (master.real or N % _CTILE == 0) or self.n_bins * self.n_bins >= 2**31 \
-                    or S * self.olen * 8 > (32 << 20):
-                raise _later("the per-element and FFT-IDFT channelizers")
+                    or (S * self.olen * 8 > _IDFT_BYTES and S - self.n_bins > self.n_bins):
+                raise _later("the per-element channelizers (small or odd masters), "
+                             "ROADMAP item 15,")
             if not noise_window_fits(self.noise_bins, master.real, N):
-                raise _later("per-element noise windows (small or odd masters)")
-            self.tile_E = torch.as_tensor(tiled_idft_matrix(self.n_bins, self.olen, S),
-                                          device=device)
-            # the channelizer kernel's form of tile_E (split real-block GEMM operand)
-            self.tile_op = channelize_operand(self.tile_E, self.n_bins, self.olen)
+                raise _later("per-element noise windows (small or odd masters), "
+                             "ROADMAP item 15,")
+            if S * self.olen * 8 <= _IDFT_BYTES:
+                self.tile_E = torch.as_tensor(tiled_idft_matrix(self.n_bins, self.olen, S),
+                                              device=device)
+                # the channelizer kernel's form of tile_E (split real-block GEMM operand)
+                self.tile_op = channelize_operand(self.tile_E, self.n_bins, self.olen)
         self.params = self._build_params()
 
     # -- retunable params ---------------------------------------------------
@@ -282,12 +295,28 @@ class _Group:
         return shifts, incs, adjs
 
     def _design_main(self, low: float, high: float, kaiser_beta: float | None = None) -> np.ndarray:
+        """Main channel response; widened into a roofing filter when the
+        filter2 cascade is on (radio.c:1635-1643)."""
         r = self.spec.samprate
         lo, hi = min(low, high), max(low, high)
+        if self.f2_N:
+            V = self.master.overlap
+            margin = 4.0 * (1.0 / self.blocktime) * (V - 1) / V
+            lo, hi = max(lo - margin, -r / 2), min(hi + margin, r / 2)
         beta = kaiser_beta if kaiser_beta is not None else self.spec.kaiser_beta
         return response_to_device_order(design_bandpass_response(
             self.n_bins, self.olen, lo / r, hi / r, kaiser_beta=beta,
             real_master=self.master.real, master_points=self.master.N))
+
+    def _design_f2(self, low: float, high: float, kaiser_beta: float | None = None) -> np.ndarray:
+        """filter2 response at the exact edges (set_filter on filter2.out)."""
+        r = self.spec.samprate
+        lo, hi = max(min(low, high), -r / 2), min(max(low, high), r / 2)
+        beta = kaiser_beta if kaiser_beta is not None else self.spec.filter2_kaiser_beta
+        return response_to_device_order(design_bandpass_response(
+            self.f2_N, self.f2_L, lo / r, hi / r,
+            kaiser_beta=beta if beta is not None else self.spec.kaiser_beta,
+            real_master=False, master_points=self.f2_N))
 
     def _build_params(self) -> dict[str, Any]:
         """Build the numpy host mirrors (`self.host`) and the device params."""
@@ -313,26 +342,46 @@ class _Group:
         if self.tiled:
             p["resp_tiles"], p["tile_lo"], p["slope"] = build_tile_params(
                 resp, shifts, self.master.real, self.master.N)
+        if self.f2_N:
+            p["responses2"] = np.stack([self._design_f2(c.low, c.high) for c in chans])
+        g_sq_open = opt("squelch_open_db", "squelch_open_db")
+        g_sq_close = opt("squelch_close_db", "squelch_close_db")
+        r = spec.samprate
+        C = self.C
+        d = {
+            "bandwidth": f32([abs(c.high - c.low) for c in chans]),
+            "headroom": f32(np.full(C, dB_to_voltage(opt("headroom_db", "headroom_db")))),
+            "squelch_open": f32([dB_to_power(c.squelch_open_db if c.squelch_open_db is not None
+                                             else g_sq_open) for c in chans]),
+            "squelch_close": f32([dB_to_power(c.squelch_close_db if c.squelch_close_db is not None
+                                              else g_sq_close) for c in chans]),
+            "squelch_tail": i32(np.full(C, opt("squelch_tail", "squelch_tail"))),
+            "snr_squelch_enable": np.full(C, spec.snr_squelch, bool),
+        }
+
+        def deemph(default_tc: str, default_gain: str, rate_hz: float) -> dict:
+            tc = (spec.deemph_tc_us if spec.deemph_tc_us is not None else DEFAULTS[default_tc]) * 1e-6
+            g_db = spec.deemph_gain_db if spec.deemph_gain_db is not None else DEFAULTS[default_gain]
+            rate = -np.expm1(-1.0 / (tc * rate_hz)) if tc > 0 else 0.0
+            return {"deemph_rate": f32(np.full(C, rate)),
+                    "deemph_gain": f32(np.full(C, dB_to_voltage(g_db)))}
+
         if spec.demod == "spectrum":
             # poll-gating flag (spectrum.c:161-186): 1 = accumulate this block
             p["armed"] = np.float32(1.0)
-            p["demod"] = {}
-            self.pristine_demod = {}
+            d = {}
+        elif spec.demod == "wfm":
+            # de-emphasis at the audio rate (modes.c:408-412); stereo by
+            # default (wfm.c:38-41), the mono fallback is automatic
+            d.update(deemph("wfm_deemph_tc_us", "wfm_deemph_gain_db", AUDIO_SAMPRATE),
+                     stereo_enable=np.full(C, spec.wfm_stereo, bool))
+        elif spec.demod == "fm":
+            d.update(threshold_ext=np.full(C, spec.threshold_extend, bool),
+                     **deemph("nbfm_deemph_tc_us", "nbfm_deemph_gain_db", r),
+                     tone_freq=f32([c.tone_freq for c in chans]))
         else:
-            g_sq_open = opt("squelch_open_db", "squelch_open_db")
-            g_sq_close = opt("squelch_close_db", "squelch_close_db")
             g_gain = opt("gain_db", "gain_db")
-            r = spec.samprate
-            C = self.C
-            p["demod"] = {
-                "bandwidth": f32([abs(c.high - c.low) for c in chans]),
-                "headroom": f32(np.full(C, dB_to_voltage(opt("headroom_db", "headroom_db")))),
-                "squelch_open": f32([dB_to_power(c.squelch_open_db if c.squelch_open_db is not None
-                                                 else g_sq_open) for c in chans]),
-                "squelch_close": f32([dB_to_power(c.squelch_close_db if c.squelch_close_db is not None
-                                                  else g_sq_close) for c in chans]),
-                "squelch_tail": i32(np.full(C, opt("squelch_tail", "squelch_tail"))),
-                "snr_squelch_enable": np.full(C, spec.snr_squelch, bool),
+            d.update({
                 "agc_enable": np.full(C, spec.agc, bool),
                 "hangtime_samples": i32(np.full(C, int(opt("hangtime_s", "hangtime_s") * r))),
                 "recovery_per_sample": f32(np.full(C, dB_to_voltage(
@@ -345,9 +394,10 @@ class _Group:
                 "pll_loop_bw": f32(np.full(C, opt("pll_bw_hz", "pll_bw_hz"))),
                 "dc_tau": f32(np.full(C, -np.expm1(-2.0 * np.pi * spec.dc_cut_hz / r)
                                       if spec.dc_cut_hz > 0 else 0.0)),
-            }
-            # build-time demod defaults: a freed dynamic slot is restored from these
-            self.pristine_demod = {k: np.copy(v) for k, v in p["demod"].items()}
+            })
+        p["demod"] = d
+        # build-time demod defaults: a freed dynamic slot is restored from these
+        self.pristine_demod = {k: np.copy(v) for k, v in d.items()}
         self.host = p  # authoritative numpy mirrors for host-side surgery
         return to_tensors(p, self.device)
 
@@ -382,17 +432,21 @@ class _Group:
         return params
 
     def set_edges(self, params: dict[str, Any], idx: int, low: float, high: float,
-                  kaiser_beta: float | None = None) -> dict[str, Any]:
+                  kaiser_beta: float | None = None,
+                  filter2_kaiser_beta: float | None = None) -> dict[str, Any]:
         """Redesign channel idx's filter (set_filter, filter.c:934-1007): host
         design, then the channel's rows of the responses, the tile-frame
-        responses and the bandwidth written into the params in place.
-        Returns `params` itself."""
+        responses, the filter2 response and the bandwidth written into the
+        params in place. Returns `params` itself."""
         h = self.host
         h["responses"][idx] = self._design_main(low, high, kaiser_beta)
         params["responses"][idx].copy_(torch.from_numpy(h["responses"][idx]))
         if self.tiled:
             self._refresh_tile_row(idx)
             params["resp_tiles"][idx].copy_(torch.from_numpy(h["resp_tiles"][idx]))
+        if self.f2_N:
+            h["responses2"][idx] = self._design_f2(low, high, filter2_kaiser_beta)
+            params["responses2"][idx].copy_(torch.from_numpy(h["responses2"][idx]))
         if "bandwidth" in h["demod"]:
             self.set_demod(params, idx, "bandwidth", abs(high - low))
         return params
@@ -424,17 +478,31 @@ class _Group:
             # of EMA-smoothing (the first blocks see the turn-on transient)
             "warmup": torch.full((), 2, dtype=torch.int32, device=dev),
         }
-        demod = (wide_init(self.wide_geo, device=dev) if self.spectrum_wide
-                 else linear_init(self.C, device=dev))
-        return {"dc": dc, "demod": demod}
+        if self.f2_N:
+            dc["tail2"] = torch.zeros((self.C, self.f2_M - 1), dtype=torch.complex64, device=dev)
+        demod = self.spec.demod
+        if demod == "fm":
+            ds = fm_init(self.C, device=dev)
+        elif demod == "wfm":
+            ds = wfm_init(self.C, self.wfm_geo, device=dev)
+        elif self.spectrum_wide:
+            ds = wide_init(self.wide_geo, device=dev)
+        elif demod == "spectrum":
+            ds = spectrum_init(self.C, self.spectrum_geo, device=dev)
+        else:
+            ds = linear_init(self.C, device=dev)
+        return {"dc": dc, "demod": ds}
 
     # -- per-block device program -------------------------------------------
     def _channelize(self, params, F):
-        """Master spectrum F -> [C, olen] baseband (pre fine-tune)."""
+        """Master spectrum F -> [C, olen] baseband (pre fine-tune): kernel A,
+        or for a slice past _IDFT_BYTES of IDFT constant the FFT-IDFT form."""
         m = self.master
-        return cuda_channelize(F, params["resp_tiles"], params["tile_lo"], params["slope"],
-                               params["shifts"], self.tile_E, self.n_bins, self.olen, m.real, m.N,
-                               E_op=self.tile_op)
+        args = (F, params["resp_tiles"], params["tile_lo"], params["slope"], params["shifts"],
+                self.tile_E, self.n_bins, self.olen, m.real, m.N)
+        if self.tile_E is None:
+            return tiled_channelize(*args)
+        return cuda_channelize(*args, E_op=self.tile_op)
 
     def _noise_est(self, params, F):
         """N0 estimate from the master bins around each channel."""
@@ -445,14 +513,16 @@ class _Group:
         """One block for this group. jobnum: host block counter (before this
         block); host: this group's host mirrors {"warmup", "frames"}.
         Returns (new_state, audio, info, new_host)."""
+        if self.spec.demod == "spectrum" and not self.host["armed"]:
+            # poll-gated: a disarmed spectrum group computes nothing
+            nb = self.spec.bin_count if self.spectrum_wide else self.spectrum_geo.bin_count
+            zeros = torch.zeros((self.C,), dtype=torch.float32, device=F.device)
+            info = {"bin_data": torch.zeros((self.C, nb), dtype=torch.float32, device=F.device),
+                    "baseband_power": zeros,
+                    "n0": zeros if self.spectrum_wide else state["dc"]["n0"]}
+            return state, torch.zeros((self.C, 0), dtype=torch.float32, device=F.device), \
+                info, host
         if self.spectrum_wide:
-            if not self.host["armed"]:
-                nb = self.spec.bin_count
-                zeros = torch.zeros((self.C,), dtype=torch.float32, device=F.device)
-                info = {"bin_data": torch.zeros((self.C, nb), dtype=torch.float32, device=F.device),
-                        "baseband_power": zeros, "n0": zeros}
-                return state, torch.zeros((self.C, 0), dtype=torch.float32, device=F.device), \
-                    info, host
             demod_state, pwr = wide_accumulate(state["demod"], block, self.wide_geo,
                                                self.wide_consts, host["frames"])
             bins = wide_extract(pwr, params["shifts"], self.master.N, self.wide_geo,
@@ -466,11 +536,16 @@ class _Group:
         warm = host["warmup"] > 0
         due = self.noise_every == 1 or warm or jobnum % self.noise_every == 0
         n0_est = self._noise_est(params, F) if due else None
-        new_state, audio, info = self._demod_tail(state, params, bb, n0_est, due, warm)
-        return new_state, audio, info, dict(host, warmup=max(host["warmup"] - 1, 0))
+        new_state, audio, info = self._demod_tail(state, params, bb, n0_est, due, warm,
+                                                  host["frames"])
+        new_host = dict(host, warmup=max(host["warmup"] - 1, 0))
+        if self.spec.demod == "spectrum":
+            new_host["frames"] = host["frames"] + self.spectrum_geo.frames_per_block
+        return new_state, audio, info, new_host
 
-    def _demod_tail(self, state, params, bb, n0_est, due: bool, warm: bool):
-        """N0 EMA on the cadence, fine-tune NCO, demod."""
+    def _demod_tail(self, state, params, bb, n0_est, due: bool, warm: bool, frames: int = 0):
+        """N0 EMA on the cadence, fine-tune NCO, filter2 cascade, demod.
+        frames: a narrowband spectrum group's host frame count."""
         prev_n0 = state["dc"]["n0"]
         if not due:
             n0 = prev_n0
@@ -481,17 +556,45 @@ class _Group:
             n0 = torch.where(prev_n0 <= 0, n0_est, prev_n0 + alpha * (n0_est - prev_n0))
 
         bb, acc = fine_tune(bb, state["dc"]["acc_q32"], params["inc_q32"], params["adj_q32"])
-        bb_power = (bb.real * bb.real + bb.imag * bb.imag).mean(-1)
-        spec = self.spec
-        demod_state, audio, info = linear_demod(
-            state["demod"], bb, bb_power, n0, params["demod"],
-            samprate=spec.samprate, blocktime=self.blocktime)
-        info["baseband_power"] = bb_power
-        info["n0"] = n0
-        if spec.egress_slots and audio.shape[1] > 0:
-            audio = self._compact(audio, info)
         new_dc = {"acc_q32": acc, "n0": n0,
                   "warmup": torch.clamp(state["dc"]["warmup"] - 1, min=0)}
+        if self.f2_N:
+            # filter2 cascade (radio.c:1543-1554): a second overlap-save stage
+            # at the output rate, exact passband edges
+            buf = torch.cat([state["dc"]["tail2"], bb], dim=1)  # [C, f2_N]
+            new_dc["tail2"] = buf[:, self.f2_L:]
+            fd = torch.fft.fft(buf) * params["responses2"]
+            if self.spec.isb:
+                # LSB/USB -> I/Q unpack (filter.c:862-876)
+                nb = self.f2_N
+                rev = torch.flip(torch.roll(fd, -1, dims=-1), dims=[-1]).conj()
+                k = torch.arange(nb, device=fd.device)[None, :]
+                fd = torch.where((k >= 1) & (k < nb // 2), fd + rev,
+                                 torch.where(k > nb // 2, fd - rev, torch.where(k == 0, 0.0, fd)))
+            bb = torch.fft.ifft(fd)[:, self.f2_N - self.olen:]
+        bb_power = (bb.real * bb.real + bb.imag * bb.imag).mean(-1)
+        spec = self.spec
+        if spec.demod == "fm":
+            demod_state, audio, info = fm_demod(
+                state["demod"], bb, bb_power, n0, params["demod"],
+                samprate=spec.samprate, blocktime=self.blocktime, ctcss=spec.ctcss)
+        elif spec.demod == "wfm":
+            demod_state, audio, info = wfm_demod(
+                state["demod"], bb, bb_power, n0, params["demod"], self.wfm_geo, self.wfm_consts)
+        elif spec.demod == "spectrum":
+            demod_state, pwr = spectrum_accumulate(state["demod"], bb, self.spectrum_geo,
+                                                   self.spectrum_consts, frames)
+            audio = torch.zeros((self.C, 0), dtype=torch.float32, device=bb.device)
+            info = {"bin_data": pwr}
+        else:
+            demod_state, audio, info = linear_demod(
+                state["demod"], bb, bb_power, n0, params["demod"],
+                samprate=spec.samprate, blocktime=self.blocktime,
+                enable_pll=spec.enable_pll, envelope=spec.envelope, stereo=spec.stereo)
+        info["baseband_power"] = bb_power
+        info["n0"] = n0
+        if spec.egress_slots and audio.shape[1] > 0 and "send" in info:
+            audio = self._compact(audio, info)
         return {"dc": new_dc, "demod": demod_state}, audio, info
 
     def _compact(self, audio, info):
@@ -604,10 +707,10 @@ class Engine:
 
     def set_edges(self, params, group: str, idx: int, low: float, high: float,
                   kaiser_beta=None, filter2_kaiser_beta=None):
-        """Redesign one channel's filter in place; returns params (nothing
-        rebuilt). filter2_kaiser_beta is for the filter2 cascade, a later
-        slice: groups here have no second stage."""
-        self.groups[group].set_edges(params[group], idx, low, high, kaiser_beta)
+        """Redesign one channel's filter in place (filter2_kaiser_beta: the
+        filter2 cascade's stage); returns params (nothing rebuilt)."""
+        self.groups[group].set_edges(params[group], idx, low, high, kaiser_beta,
+                                     filter2_kaiser_beta)
         return params
 
     def set_armed(self, params, group: str, armed: bool):
@@ -626,7 +729,7 @@ class Engine:
                 continue
             n = min(g.C, og.C)
             for key in ("shifts", "inc_q32", "adj_q32", "responses", "resp_tiles", "tile_lo",
-                        "slope"):
+                        "slope", "responses2"):
                 if (key in g.host and key in og.host
                         and g.host[key].shape[1:] == og.host[key].shape[1:]):
                     g.host[key][:n] = og.host[key][:n]

@@ -22,9 +22,10 @@ runs it flat out, a live deployment paces on the source.
 
 A device error is never turned into a dropped block: any exception from the
 engine step, the device->host copy or a table rebuild propagates. Block
-drops count front-end read gaps only. Asking for a demodulator the port does
-not carry yet raises at startup, and refuses the command (one line on
-stderr, the channel unchanged) when a control command asks for it.
+drops count front-end read gaps only. Every demodulator of the JAX package
+runs; a group the port does not carry yet (beamforming, several inputs)
+raises at startup, and a control command asking for one is refused (one
+line on stderr, the channel unchanged).
 """
 from __future__ import annotations
 
@@ -63,6 +64,15 @@ def _gps_time_ns() -> int:
 
 def _yes(v) -> bool:
     return str(v).lower() in ("y", "yes", "true", "1", "on")
+
+
+def _out_format(spec) -> tuple[int, int]:
+    """(sample rate, channels) of a group's audio on the wire: WFM sends
+    48 kHz stereo (its mono fallback is switched per block), I/Q stereo
+    linear two channels, the rest mono at the group's rate."""
+    if spec.demod == "wfm":
+        return 48_000, 2
+    return spec.samprate, 2 if spec.stereo else 1
 
 
 def _stack_tree(trees: list):
@@ -131,6 +141,7 @@ class _Chan:
     opus_bitrate: int = 0  # OPUS_BIT_RATE (0 = auto)
     opus_dtx: bool = False
     opus_app: int | None = None  # OPUS_APPLICATION
+    rds: bool = False  # emits the WFM channel's RDS baseband instead of audio
 
 
 class _LazyGroupInfo:
@@ -321,6 +332,7 @@ class Radiod:
         self.chans: dict[int, _Chan] = {}
         for gname, g in self.engine.groups.items():
             spec = g.spec
+            out_rate, nch = _out_format(spec)
             genc = default_enc
             if spec.encoding and spec.encoding.upper() in Encoding.__members__:
                 genc = Encoding[spec.encoding.upper()]  # per-section override
@@ -328,14 +340,24 @@ class Radiod:
                 ssrc = c.resolved_ssrc()
                 while ssrc in self.chans:  # collision: bump like the reference
                     ssrc += 1
-                # mono at the group's rate: the stereo and 48 kHz WFM
-                # outputs come with their demodulators (ROADMAP items 11, 14)
-                pt = self.registry.pt_from_info(spec.samprate, 1, genc)
+                pt = self.registry.pt_from_info(out_rate, nch, genc)
                 self.chans[ssrc] = _Chan(
                     group=gname, idx=i, ssrc=ssrc, freq=c.freq, low=c.low,
-                    high=c.high, samprate=spec.samprate, channels=1,
+                    high=c.high, samprate=out_rate, channels=nch,
                     encoding=genc, pt=pt, update_every=spec.update,
                 )
+                if spec.demod == "wfm" and _yes(cfg.options.get("rds", "n")):
+                    # companion RDS-baseband stream on ssrc+1 (the rdsd client's
+                    # input); bump on collision like primary channels
+                    rds_ssrc = ssrc + 1
+                    while rds_ssrc in self.chans:
+                        rds_ssrc += 1
+                    rds_pt = self.registry.pt_from_info(48_000, 1, Encoding.F16LE)
+                    self.chans[rds_ssrc] = _Chan(
+                        group=gname, idx=i, ssrc=rds_ssrc, freq=c.freq, low=c.low,
+                        high=c.high, samprate=48_000, channels=1,
+                        encoding=Encoding.F16LE, pt=rds_pt, rds=True,
+                    )
 
         self.data_sock = self.status_sock = self.status_in = None
         self.beacon_sock = None
@@ -460,6 +482,12 @@ class Radiod:
                     for c in self.chans.values() if c.group == gname):
                 # the compacted (indexed) send is PCM-only: Opus needs
                 # per-channel encoder state the gather path doesn't carry
+                continue
+            if spec.demod == "wfm":
+                # WFM flips channel count and payload type per block on pilot
+                # loss (wfm.c:226-276), which the fixed-shape edge cannot;
+                # station counts are small, the Python path handles them
+                # (and their RDS companion streams)
                 continue
             group_chans = [c for c in self.chans.values()
                            if c.group == gname
@@ -857,7 +885,8 @@ class Radiod:
     _CARRY_KEYS = ("squelch_open", "squelch_close", "snr_squelch_enable",
                    "manual_gain", "agc_enable", "hangtime_samples",
                    "recovery_per_sample", "threshold", "headroom",
-                   "shift_inc_q32", "pll_loop_bw", "pll_square")
+                   "tone_freq", "shift_inc_q32", "pll_loop_bw", "pll_square",
+                   "threshold_ext", "deemph_rate", "deemph_gain")
 
     def _move_channel(self, ch: _Chan, template, carry: bool = True,
                       low: float | None = None, high: float | None = None):
@@ -909,9 +938,8 @@ class Radiod:
         ch.group, ch.idx = gname, slot
         ch.last_info = {}  # stale per-group info from the old class
         ch.agg = []
-        out_rate = spec.samprate
+        out_rate, ch.channels = _out_format(spec)
         ch.samprate = out_rate
-        ch.channels = 1
         ch.pt = self.registry.pt_from_info(out_rate, ch.channels, ch.encoding)
         ch.opus_encoder = None
         lo = max(lo, -out_rate / 2)
@@ -941,8 +969,8 @@ class Radiod:
     @staticmethod
     def _refused(ssrc: int, template) -> bool:
         """True, after one line on stderr, when `template` needs a part of
-        the engine the port does not carry yet (check_spec names its slice):
-        the command is refused and the daemon goes on."""
+        the engine the port does not carry yet (check_spec names its ROADMAP
+        item): the command is refused and the daemon goes on."""
         try:
             check_spec(template)
         except NotImplementedError as e:
@@ -977,7 +1005,7 @@ class Radiod:
         slot = self._acquire_slot(gname, template)
 
         spec = self.engine.groups[gname].spec
-        out_rate, nch = spec.samprate, 1
+        out_rate, nch = _out_format(spec)
         enc_name = str(self.cfg.options.get("encoding", "s16be")).upper()
         enc = Encoding[enc_name] if enc_name in Encoding.__members__ else Encoding.S16BE
         pt = self.registry.pt_from_info(out_rate, nch, enc)
@@ -1192,6 +1220,8 @@ class Radiod:
                 return
         if enc in (Encoding.OPUS, Encoding.OPUS_VOIP) and ch.samprate not in _OPUS_RATES:
             spec = self.engine.groups[ch.group].spec
+            if spec.demod == "wfm":
+                return  # wfm output is 48k already; anything else is a bug
             self._move_channel(ch, dataclasses.replace(spec, samprate=48_000))
         ch.encoding = enc
         ch.opus_encoder = None
@@ -1280,7 +1310,7 @@ class Radiod:
             nch = int(fields[T.OUTPUT_CHANNELS])
             if (nch in (1, 2) and repl.get("demod", template.demod) == "linear"
                     and (nch == 2) != template.stereo):
-                repl["stereo"] = nch == 2
+                repl["stereo"] = nch == 2  # wfm handled as runtime stereo_enable below
         if T.FILTER2 in fields:
             f2 = abs(int(fields[T.FILTER2]))
             if f2 <= 10 and f2 != template.filter2:
@@ -1366,12 +1396,19 @@ class Radiod:
                  np.float32(dB_to_voltage(abs(float(fields[T.AGC_RECOVERY_RATE])) / ch.samprate)))
         if T.AGC_THRESHOLD in fields and "threshold" in gp:
             setp("threshold", np.float32(dB_to_voltage(-abs(float(fields[T.AGC_THRESHOLD])))))
+        if T.PL_TONE in fields and "tone_freq" in gp:
+            setp("tone_freq", np.float32(float(fields[T.PL_TONE])))
+        if T.THRESH_EXTEND in fields and "threshold_ext" in gp:
+            setp("threshold_ext", bool(fields[T.THRESH_EXTEND]))
         if T.PLL_BW in fields and "pll_loop_bw" in gp:
             setp("pll_loop_bw", np.float32(abs(float(fields[T.PLL_BW]))))
         if T.PLL_SQUARE in fields and "pll_square" in gp:
             setp("pll_square", bool(fields[T.PLL_SQUARE]))
         if T.SNR_SQUELCH in fields and "snr_squelch_enable" in gp:
             setp("snr_squelch_enable", bool(fields[T.SNR_SQUELCH]))
+        if T.OUTPUT_CHANNELS in fields and spec.demod == "wfm" and "stereo_enable" in gp:
+            # 2 channels enables FM stereo, 1 disables (radio_status.c:452-456)
+            setp("stereo_enable", int(fields[T.OUTPUT_CHANNELS]) == 2)
         if T.SHIFT_FREQUENCY in fields and "shift_inc_q32" in gp:
             from ..ops.osc import rev_to_q32
             setp("shift_inc_q32", rev_to_q32(float(fields[T.SHIFT_FREQUENCY]) / ch.samprate))
@@ -1530,9 +1567,24 @@ class Radiod:
                     pass
             if src:
                 fields[T.OUTPUT_DATA_SOURCE_SOCKET] = (src[0], src[1])
-        # linear and spectrum only: the FM, PLL, filter2 and ISB fields come
-        # with their demodulators (ROADMAP items 11, 13, 14)
-        if spec.demod == "spectrum":
+        if spec.demod in ("fm", "wfm"):
+            fields[T.FM_SNR] = power_to_dB(max(g("fm_snr"), 1e-30))
+            hd = self.engine.groups[ch.group].host["demod"]
+            if "deemph_rate" in hd:
+                # the host keeps the one-pole alpha: a = 1 - exp(-1/(fs*tc))
+                a = float(hd["deemph_rate"][ch.idx])
+                if 0.0 < a < 1.0:
+                    fields[T.DEEMPH_TC] = -1e6 / (ch.samprate * np.log(1.0 - a))
+            if "deemph_gain" in hd:
+                fields[T.DEEMPH_GAIN] = voltage_to_dB(max(float(hd["deemph_gain"][ch.idx]), 1e-15))
+            fields[T.PEAK_DEVIATION] = g("pdeviation")
+            fields[T.FREQ_OFFSET] = g("foffset")
+            if "tone_deviation" in info:
+                fields[T.PL_DEVIATION] = g("tone_deviation")
+                fields[T.PL_TONE] = float(hd["tone_freq"][ch.idx])
+            fields[T.THRESH_EXTEND] = (bool(hd["threshold_ext"][ch.idx])
+                                       if "threshold_ext" in hd else spec.threshold_extend)
+        elif spec.demod == "spectrum":
             grp = self.engine.groups[ch.group]
             geo = grp.wide_geo if grp.spectrum_wide else grp.spectrum_geo
             fields[T.RESOLUTION_BW] = geo.rbw
@@ -1579,11 +1631,28 @@ class Radiod:
             fields[T.AGC_ENABLE] = bool(self.engine.groups[ch.group].host["demod"]["agc_enable"][ch.idx])
             if "gain" in info:
                 fields[T.GAIN] = voltage_to_dB(max(g("gain"), 1e-30))
+            if spec.enable_pll:
+                fields[T.PLL_LOCK] = bool(np.asarray(info["pll_lock"][ch.idx])) if "pll_lock" in info else False
+                fields[T.FREQ_OFFSET] = g("foffset")
+                if "cphase" in info:
+                    fields[T.PLL_PHASE] = g("cphase")
+                if "pll_wraps" in info:
+                    fields[T.PLL_WRAPS] = int(np.asarray(info["pll_wraps"][ch.idx]))
         host_d0 = self.engine.groups[ch.group].host["demod"]
         fields[T.SNR_SQUELCH] = (bool(host_d0["snr_squelch_enable"][ch.idx])
                                  if "snr_squelch_enable" in host_d0 else spec.snr_squelch)
         if ch.preset:
             fields[T.PRESET] = ch.preset
+        if spec.filter2:
+            grp = self.engine.groups[ch.group]
+            fields[T.FILTER2] = spec.filter2
+            if grp.f2_N:
+                fields[T.FILTER2_BLOCKSIZE] = grp.olen
+                fields[T.FILTER2_FIR_LENGTH] = grp.f2_N - grp.olen + 1
+            fields[T.FILTER2_KAISER_BETA] = (ch.filter2_beta if ch.filter2_beta is not None
+                                             else spec.filter2_kaiser_beta or spec.kaiser_beta)
+        if spec.isb:
+            fields[T.INDEPENDENT_SIDEBAND] = True
         if ch.maxdelay is not None:
             fields[T.MAXDELAY] = ch.maxdelay
         if ch.encoding in (Encoding.OPUS, Encoding.OPUS_VOIP):
@@ -2002,7 +2071,9 @@ class Radiod:
                     self._send_beacon(self.encode_channel_status(ch), ch)
                 continue
             send = bool(np.asarray(info["send"][ch.idx])) if "send" in info else True
-            if "egress_idx" in info:
+            if ch.rds:
+                audio = np.asarray(info["rds_baseband"][ch.idx])
+            elif "egress_idx" in info:
                 # compacted group on the Python path: row lookup by
                 # channel index (muted channels get a zero block so the
                 # RTP timestamp still advances)
@@ -2017,9 +2088,23 @@ class Radiod:
                     audio = np.zeros(a_all.shape[1:], np.float32)
             else:
                 audio = np.asarray(gout["audio"][ch.idx])
+            if not ch.rds and "stereo" in info and audio.ndim == 2:
+                # WFM mono fallback switches the wire format per block:
+                # channel count follows pilot presence and the payload type
+                # is re-derived (wfm.c:226-276). Both output columns carry
+                # the de-emphasized mono in fallback; send one.
+                nch_now = 2 if bool(np.asarray(info["stereo"][ch.idx])) else 1
+                if nch_now != ch.channels:
+                    if ch.agg:  # flush queued blocks under the OLD format
+                        self._emit_rtp(ch, np.concatenate(ch.agg), send=True)
+                        ch.agg = []
+                    ch.channels = nch_now
+                    ch.pt = self.registry.pt_from_info(ch.samprate, nch_now, ch.encoding)
+                if nch_now == 1:
+                    audio = audio[:, 0]
             if audio.size:
                 agg_n = ch.maxdelay if ch.maxdelay is not None else self.agg_blocks
-                if agg_n > 0:
+                if agg_n > 0 and not ch.rds:
                     # aggregation queue (audio.c:64-110, MAXDELAY cmd):
                     # coalesce blocks, flush when full or on squelch close
                     if send:

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: each CUDA kernel against its plain version, and
-the small slice on CUDA against the same slice on the CPU.
+"""PyTorch port on the card: each CUDA kernel against its plain version (the
+channelizer, the N0 estimator, and the PLL and Goertzel recurrences), and the
+small slices on CUDA against the same slices on the CPU.
 
 These need an NVIDIA GPU with the CUDA toolkit (the kernels build with nvcc
 at first use); elsewhere they skip. On such a host:
@@ -156,7 +157,7 @@ def test_small_slice_on_card_matches_cpu(cuda):
         sc, oc = ec.step(sc, pc, torch.from_numpy(x))
         a_g, a_c = og["hf"]["audio"].cpu(), oc["hf"]["audio"]
         assert float((a_g - a_c).abs().max()) < 5e-4 * float(a_c.abs().max())
-    assert tcc.launches == {"channelize": 6, "noise_est": 3}
+    assert tcc.launches == {"channelize": 6, "noise_est": 3, "pll_scan": 0, "goertzel": 0}
 
 
 _DAEMON_CONF = """
@@ -265,3 +266,110 @@ def test_radiod_rebuild_and_restock_on_cuda(cuda):
                                                                   hb.marker)
             d = np.frombuffer(xa, ">i2").astype(np.int32) - np.frombuffer(xb, ">i2").astype(np.int32)
             assert np.abs(d).max(initial=0) <= 1
+
+
+def test_noise_kernel_wfm_window(cuda):
+    """The 9,600-bin WFM slice's window (W = 9,600, keys in shared memory)
+    on a complex 7.68 Msps master, mod-wrapped through DC: keys exact."""
+    rng = np.random.default_rng(11)
+    master_N = 192_000
+    F = (rng.standard_normal(master_N) + 1j * rng.standard_normal(master_N)).astype(np.complex64)
+    shifts = np.array([0, 4000, -4000, 60_000, -95_000, 95_999, 25_000, -30_000], np.int32)
+    F, shifts = torch.as_tensor(F, device=cuda), torch.as_tensor(shifts, device=cuda)
+    n0_k, keys_k = tcc.cuda_noise_est(F, shifts, 9_600, False, master_N, 7.68e6)
+    n0_t, keys_t = tnz.estimate_noise_keys(
+        tnz.gather_noise_bins(F, shifts, 9_600, False, master_N), master_N, 7.68e6)
+    torch.cuda.synchronize()
+    assert torch.equal(keys_k, keys_t)
+    torch.testing.assert_close(n0_k, n0_t, rtol=2e-5, atol=0)
+
+
+def _pll_inputs(C: int, T: int, device, seed: int = 12):
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / 12_000
+    amp = np.logspace(-3, -0.5, C)[:, None]
+    bb = amp * np.exp(2j * np.pi * (rng.uniform(-20, 20, (C, 1)) * t + rng.uniform(0, 1, (C, 1))))
+    bb = (bb + 3e-4 * (rng.standard_normal((C, T)) + 1j * rng.standard_normal((C, T))))
+    d = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    pll = {"vco_phase": d(rng.integers(-2**31, 2**31, C, dtype=np.int64).astype(np.int32)),
+           "u": d(rng.uniform(-1e-3, 1e-3, C).astype(np.float32)),
+           "phi": d(rng.uniform(-0.9, 0.9, C).astype(np.float32)),
+           "wraps": d(rng.integers(-3, 3, C).astype(np.int32))}
+    from ka9q_radio_tpu_torch.ops.osc import pll_params
+
+    k1, k2 = pll_params(d(np.full(C, 20.0 / 12_000, np.float32)))
+    return (d(bb.astype(np.complex64)), pll, k1, k2, d(np.arange(C) % 3 == 0),
+            d(np.arange(C) % 2 == 1))
+
+
+def test_pll_scan_kernel_matches_plain(cuda):
+    """C = 400, T = 240 (the SAM shapes), locked and unlocked, plain and
+    squared detectors: the kernel against its plain loop on the card. Both
+    round each operation once in the same order, so they agree to a few ulp
+    of the mixed samples and VCO words within 4,096 LSB (1e-6 rev) on the
+    carrier-led channels; launches are counted."""
+    from ka9q_radio_tpu_torch.models.linear import pll_scan_plain
+    from ka9q_radio_tpu_torch.ops.cuda_recur import cuda_pll_scan
+
+    args = _pll_inputs(400, 240, cuda)
+    n = tcc.launches["pll_scan"]
+    mk, sk, gk, nk = cuda_pll_scan(*args)
+    mp, sp, gp, np_ = pll_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert tcc.launches["pll_scan"] == n + 1
+    assert float((mk - mp).abs().max()) <= 1e-5 * float(mp.abs().max())
+    dv = (sk["vco_phase"].long() - sp["vco_phase"].long() + 2**31) % 2**32 - 2**31
+    assert int(dv.abs().max()) <= 4096
+    torch.testing.assert_close(gk, gp, rtol=1e-5, atol=0)
+    torch.testing.assert_close(nk, np_, rtol=1e-5, atol=0)
+    assert torch.equal(sk["wraps"], sp["wraps"])
+
+
+def test_goertzel_kernel_matches_plain(cuda):
+    """C = 400, T = 480 (the nbfm400 shapes): the kernel against its plain
+    loop on the card, within 1e-5 of the state's peak."""
+    from ka9q_radio_tpu_torch.ops.cuda_recur import cuda_goertzel_block
+    from ka9q_radio_tpu_torch.ops.iir import goertzel_coeff, goertzel_update_block
+
+    rng = np.random.default_rng(13)
+    C, T = 400, 480
+    x = torch.as_tensor(rng.standard_normal((C, T)).astype(np.float32), device=cuda)
+    coeff, _ = goertzel_coeff(torch.as_tensor(rng.uniform(60, 260, C).astype(np.float32) / 24_000,
+                                              device=cuda))
+    st = {"s0": torch.as_tensor(rng.standard_normal(C).astype(np.float32), device=cuda),
+          "s1": torch.as_tensor(rng.standard_normal(C).astype(np.float32), device=cuda)}
+    n = tcc.launches["goertzel"]
+    got = cuda_goertzel_block(st, x, coeff)
+    want = goertzel_update_block(st, x, coeff)
+    torch.cuda.synchronize()
+    assert tcc.launches["goertzel"] == n + 1
+    for k in ("s0", "s1"):
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5 * float(want[k].abs().max())
+
+
+def test_every_demod_on_card_matches_cpu(cuda):
+    """test_torch_engine's every-demodulator slice on the card and on the
+    CPU, six blocks from the same start: each group's audio within 5e-4 of
+    its peak (the WFM composite and the PLL within 2e-3, chaotic detectors
+    as test_torch_demods says), and each kernel launched."""
+    import ka9q_radio_tpu_torch.runtime as trt
+    from torch_scenes import CFS, demod_block, demod_groups
+
+    eg = trt.Engine(CFS, demod_groups(trt), real=False, device=cuda)
+    ec = trt.Engine(CFS, demod_groups(trt), real=False, device="cpu")
+    sg, pg, sc, pc = eg.init_state(), eg.init_params(), ec.init_state(), ec.init_params()
+    rng = np.random.default_rng(14)
+    tcc.reset_launches()
+    for b in range(6):
+        x = demod_block(b, eg.L, rng)
+        sg, og = eg.step(sg, pg, torch.as_tensor(x, device=cuda))
+        sc, oc = ec.step(sc, pc, torch.from_numpy(x))
+        if b < 2:
+            continue
+        for name in ec.groups:
+            a_g, a_c = og[name]["audio"].cpu(), oc[name]["audio"]
+            if a_c.numel():
+                tol = 2e-3 if name in ("wfm", "sam") else 5e-4
+                assert float((a_g - a_c).abs().max()) <= tol * float(a_c.abs().max()), (b, name)
+    assert tcc.launches["pll_scan"] == 6 and tcc.launches["goertzel"] == 6
+    assert tcc.launches["channelize"] == 6 * (len(ec.groups) - 1)  # WFM: FFT-IDFT on cuFFT

@@ -1,5 +1,6 @@
-"""PyTorch port, ops/agc.py, models/linear.py and the wide part of
-models/spectrum.py against the JAX package on the CPU."""
+"""PyTorch port, ops/agc.py, models/linear.py's SSB path and the wide part
+of models/spectrum.py against the JAX package on the CPU (the PLL, envelope
+and stereo paths and the other demodulators: test_torch_demods.py)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -295,16 +296,6 @@ def test_agc_thresholds_same_branch():
             else:
                 assert h == 0 and g > gain[i], (name, i, w, h, g)
     np.testing.assert_array_equal(_to_np(ts)["hangcount"], np.asarray(js["hangcount"]))
-
-
-@pytest.mark.parametrize("flag", ["enable_pll", "envelope", "stereo"])
-def test_linear_later_slice_flags_raise(flag):
-    C = 2
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tlin.linear_demod(tlin.linear_init(C, device="cpu"),
-                          torch.zeros((C, OLEN), dtype=torch.complex64),
-                          torch.zeros(C), torch.zeros(C), {}, samprate=RATE,
-                          blocktime=BLOCKTIME, **{flag: True})
 
 
 @pytest.mark.parametrize("kind,param", [("kaiser", 7.0), ("hann", None), ("blackman_harris", None),
