@@ -28,9 +28,18 @@ plain loops; nbfm400 through Engine.step (a 1 kHz FM tone, a quiet
 channel's squelch, 64 timed blocks), wfm (stereo separation, the mono
 fallback, 64 timed blocks), and examples/radiod@2m.conf through Radiod
 (CTCSS open and mute, a switch to sam that locks its PLL, a switch to isb,
-a 50 Hz spectrum channel polled). Each phase prints one JSON line; the
-kernels line and the card's `nvidia-smi` name and power limit come before
-the last line, which is
+a 50 Hz spectrum channel polled). Then several inputs, odd masters and
+beamforming: bench.py's rx888x4 (four 129.6 Msps real streams, one group
+of 4,000 SSB channels over all four: both kernels with input offsets
+against their plain versions, a tone on one stream's channel heard there
+only, 64 timed steps, a trace), an RTL-SDR's 2.4 Msps complex master
+(N 60,000: the per-element channelizer on cuFFT, kernel B on per-element
+windows, an FM known answer), tests/test_beam.py's dual-antenna scene,
+and the daemon on two [hardware] sig_gen sections (the rx888-wspr farm on
+one, a usb section on the other: each carrier heard on its own input
+only, the per-input IF power in the status). Each phase prints one JSON
+line; the kernels line and the card's `nvidia-smi` name and power limit
+come before the last line, which is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Long logs
 go to chiprun_out/. It imports nothing of JAX.
 """
@@ -69,14 +78,18 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def rx888_groups(rt):
-    """bench.py's rx888 configuration, in the port's specs."""
+def rx888_groups(rt, B: int = 1):
+    """bench.py's rx888 configuration, in the port's specs; B > 1 gives its
+    rx888x<B>: one group of 1,000 SSB channels on each of B streams
+    (per-channel inputs), the 16-channel sweep on stream 0."""
     ChannelSpec, GroupSpec = rt.ChannelSpec, rt.GroupSpec
     freqs = np.linspace(0.02 * FS, 0.48 * FS, 1000)
     sfreqs = np.linspace(0.05 * FS, 0.45 * FS, 16)
     return [
         GroupSpec(name="hf", demod="linear", samprate=12_000, snr_squelch=True,
-                  channels=tuple(ChannelSpec(freq=float(f), low=50.0, high=3000.0) for f in freqs)),
+                  channels=tuple(ChannelSpec(freq=float(f), low=50.0, high=3000.0,
+                                             input=b if B > 1 else None)
+                                 for b in range(B) for f in freqs)),
         GroupSpec(name="sweep", demod="spectrum", samprate=32_400, bin_bw=1000.0, bin_count=128,
                   channels=tuple(ChannelSpec(freq=float(f)) for f in sfreqs)),
     ]
@@ -180,17 +193,33 @@ def tile_rows(tile_lo: np.ndarray, S: int, m) -> np.ndarray:
     return np.remainder(r, m.bins // _CTILE)
 
 
-def window_bins(shifts: np.ndarray, W: int, m) -> np.ndarray:
+def window_bins(shifts: np.ndarray, nbins: int, m) -> np.ndarray:
     """[C, W] master bins of each channel's noise window (kernel B's input),
-    placed as ops/noise.py gather_noise_bins places them."""
+    placed as ops/noise.py gather_noise_bins places them: W = nbins rounded
+    up to whole 128-bin tiles on the 128-bin grid where the master allows
+    it, else W = nbins at any start (per-element)."""
     from ka9q_radio_tpu_torch.ops.filterbank import _CTILE
+    from ka9q_radio_tpu_torch.ops.noise import noise_window_fits
 
+    tiled = noise_window_fits(nbins, m.real, m.N)
+    W = -(-nbins // _CTILE) * _CTILE if tiled else nbins
     sh = np.asarray(shifts, np.int64)
     if m.real:
-        start = np.clip(np.abs(sh) - W // 2, 0, m.bins - W) // _CTILE * _CTILE
-        return start[:, None] + np.arange(W)
-    lo = np.clip(sh - W // 2, -(m.bins // 2), (m.bins - 1) // 2 - (W - 1))
-    return np.remainder(lo // _CTILE * _CTILE + np.arange(W)[:, None], m.bins).T
+        lo = np.clip(np.abs(sh) - W // 2, 0, max(m.bins - W, 0))
+    else:
+        lo = np.minimum(np.maximum(sh - W // 2, -(m.bins // 2)), (m.bins - 1) // 2 - (W - 1))
+    if tiled:
+        lo = lo // _CTILE * _CTILE
+    idx = lo[:, None] + np.arange(W)
+    return np.clip(idx, 0, m.bins - 1) if m.real else np.remainder(idx, m.bins)
+
+
+def unique_count(idx: np.ndarray, inputs: "np.ndarray | None", stride: int) -> int:
+    """Distinct master bins (or tile rows) of [C, k] per-input indices: the
+    bytes a kernel must read, each once (inputs None: one spectrum)."""
+    if inputs is not None:
+        idx = idx + np.asarray(inputs, np.int64)[:, None] * stride
+    return len(np.unique(idx))
 
 
 def check_kernels(eng, params, F, group: str = "hf") -> list[dict]:
@@ -209,32 +238,39 @@ def check_kernel_a(eng, params, F, group: str) -> dict:
 
     g, p, m = eng.groups[group], params[group], eng.master
     C, S = p["resp_tiles"].shape
-    olen = g.olen
+    olen, inp = g.olen, g.inputs_t
 
     def kern_a():
         return cc.cuda_channelize(F, p["resp_tiles"], p["tile_lo"], p["slope"], p["shifts"],
-                                  g.tile_E, g.n_bins, olen, m.real, m.N, E_op=g.tile_op)
+                                  g.tile_E, g.n_bins, olen, m.real, m.N, E_op=g.tile_op,
+                                  inputs=inp)
 
     def plain_a():
         return tiled_channelize(F, p["resp_tiles"], p["tile_lo"], p["slope"], p["shifts"],
-                                g.tile_E, g.n_bins, olen, m.real, m.N)
+                                g.tile_E, g.n_bins, olen, m.real, m.N, inputs=inp)
 
     got, want = kern_a(), plain_a()
     err_a = float((got - want).abs().max())
     scale_a = float(want.abs().max())
     c128 = [t.to(torch.complex128) for t in (F, p["resp_tiles"], g.tile_E)]
     exact = tiled_channelize(c128[0], c128[1], p["tile_lo"], p["slope"], p["shifts"], c128[2],
-                             g.n_bins, olen, m.real, m.N)
+                             g.n_bins, olen, m.real, m.N, inputs=inp)
     err_a64 = float((got.to(torch.complex128) - exact).abs().max())
     if not err_a < 3e-5 * scale_a:
         fail(f"channelize kernel disagrees: max abs err {err_a} vs bound {3e-5 * scale_a}")
     # library yardstick: one complex GEMM of the gathered, filtered bins by E
+    # (several inputs: the rows of each channel's own input, ld bins apart)
     nrows = -(-m.bins // _CTILE)
     rows = tile_rows(g.host["tile_lo"], S, m)
-    Fp = torch.nn.functional.pad(F, (0, nrows * _CTILE - m.bins)).reshape(nrows, _CTILE)
-    x = Fp[torch.as_tensor(rows, device=F.device)].reshape(C, S) * p["resp_tiles"]
+    if inp is None:
+        Fp = torch.nn.functional.pad(F, (0, nrows * _CTILE - m.bins)).reshape(nrows, _CTILE)
+        flat = rows
+    else:
+        Fp = F.reshape(-1, _CTILE)
+        flat = rows + g.inputs.astype(np.int64)[:, None] * (F.shape[-1] // _CTILE)
+    x = Fp[torch.as_tensor(flat, device=F.device)].reshape(C, S) * p["resp_tiles"]
     lib_a = device_ms(lambda: torch.matmul(x, g.tile_E))
-    nb_a, nops_a = counts_a(C, S, g.n_bins, olen, len(np.unique(rows)))
+    nb_a, nops_a = counts_a(C, S, g.n_bins, olen, len(np.unique(flat)))
     # A alone after a 64 MB write has evicted L2 (E's operand, the
     # responses, F): how much of its in-step time L2 misses explain
     flush = torch.empty(16 << 20, dtype=torch.float32, device=F.device)
@@ -246,23 +282,26 @@ def check_kernel_a(eng, params, F, group: str) -> dict:
             "ms_cold_l2": cold_a, **bound_a(nb_a, nops_a), "library_ms": lib_a,
             "library_call": "torch.matmul(gathered x [C, S] c64, E [S, olen] c64)",
             "bytes": nb_a, "ops": nops_a,
-            "shape": {"C": C, "S": S, "n": g.n_bins, "olen": olen}}
+            "shape": {"C": C, "S": S, "n": g.n_bins, "olen": olen,
+                      **({"inputs": eng.n_inputs, "ld": F.shape[-1]} if inp is not None else {})}}
 
 
 def check_kernel_b(eng, params, F, group: str) -> dict:
     from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
-    from ka9q_radio_tpu_torch.ops.filterbank import _CTILE
-    from ka9q_radio_tpu_torch.ops.noise import estimate_noise_keys, gather_noise_bins
+    from ka9q_radio_tpu_torch.ops.noise import (estimate_noise_keys, gather_noise_bins,
+                                                noise_window_fits)
 
     g, p, m = eng.groups[group], params[group], eng.master
-    C = p["shifts"].shape[0]
+    C, inp = p["shifts"].shape[0], g.inputs_t
 
     def kern_b():
-        return cc.cuda_noise_est(F, p["shifts"], g.noise_bins, m.real, m.N, eng.samprate)
+        return cc.cuda_noise_est(F, p["shifts"], g.noise_bins, m.real, m.N, eng.samprate,
+                                 inputs=inp)
 
     def plain_b():
-        return estimate_noise_keys(gather_noise_bins(F, p["shifts"], g.noise_bins, m.real, m.N),
-                                   m.bins, eng.samprate)
+        return estimate_noise_keys(
+            gather_noise_bins(F, p["shifts"], g.noise_bins, m.real, m.N, inp), m.bins,
+            eng.samprate)
 
     (n0_k, keys_k), (n0_t, keys_t) = kern_b(), plain_b()
     if not torch.equal(keys_k, keys_t):
@@ -271,9 +310,11 @@ def check_kernel_b(eng, params, F, group: str) -> dict:
     rel_b = float(((n0_k - n0_t).abs() / n0_t.abs()).max())
     if not rel_b <= 2e-5:
         fail(f"noise kernel N0 disagrees: max rel err {rel_b} > 2e-5")
-    W = -(-g.noise_bins // _CTILE) * _CTILE
-    bb = bound_b(*counts_b(C, W, len(np.unique(window_bins(g.host["shifts"], W, m)))))
-    energies = gather_noise_bins(F, p["shifts"], g.noise_bins, m.real, m.N)
+    win = window_bins(g.host["shifts"], g.noise_bins, m)
+    W = win.shape[1]
+    bb = bound_b(*counts_b(C, W, unique_count(win, g.inputs if inp is not None else None,
+                                              F.shape[-1])))
+    energies = gather_noise_bins(F, p["shifts"], g.noise_bins, m.real, m.N, inp)
     i_stat = int(np.floor(0.10 * (W - 1)))
     lib_b = device_ms(lambda: torch.kthvalue(energies, i_stat + 1, dim=-1))
     return {"name": "noise_est", "route": "cuda", "source": cc.SOURCES["noise_est"],
@@ -282,7 +323,10 @@ def check_kernel_b(eng, params, F, group: str) -> dict:
             "keys_equal": True, "ms": device_ms(kern_b), "plain_ms": device_ms(plain_b),
             "call_ms": time_ms(kern_b), **bb, "library_ms": lib_b,
             "library_call": "torch.kthvalue(gathered |F|^2 [C, W], i + 1): statistic i only",
-            "shape": {"C": C, "W": W}}
+            "shape": {"C": C, "W": W,
+                      "window": ("tile-aligned" if noise_window_fits(g.noise_bins, m.real, m.N)
+                                 else "per-element"),
+                      **({"inputs": eng.n_inputs, "ld": F.shape[-1]} if inp is not None else {})}}
 
 
 def hf_tiles(C: int, device, seed: int = 7) -> dict:
@@ -486,13 +530,15 @@ def run_scene(eng, params, device, seed: int = 1) -> dict:
 
 
 def noise_blocks(eng, n: int, n0: float, device, seed: int) -> torch.Tensor:
-    """[n, L] blocks of white noise of density n0 (power/Hz) for eng's
-    master: float32 for a real one, complex64 for a complex one."""
+    """[n, L] blocks ([n, B, L] for an engine of B inputs) of white noise of
+    density n0 (power/Hz) for eng's master: float32 for a real one,
+    complex64 for a complex one."""
     gen = torch.Generator(device=device).manual_seed(seed)
     std = float(np.sqrt(n0 * eng.samprate / 2.0))
+    shape = (n, eng.n_inputs, eng.L) if eng.n_inputs > 1 else (n, eng.L)
     if eng.master.real:
-        return std * torch.randn((n, eng.L), generator=gen, device=device)
-    return torch.view_as_complex(std * torch.randn((n, eng.L, 2), generator=gen, device=device))
+        return std * torch.randn(shape, generator=gen, device=device)
+    return torch.view_as_complex(std * torch.randn(shape + (2,), generator=gen, device=device))
 
 
 def outputs_finite(out: dict) -> bool:
@@ -530,11 +576,13 @@ def timed_run(eng, params, device, n0: float = N0_SCENE, nblocks: int = 64, warm
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     ms = e0.elapsed_time(e1) / nblocks
-    return {"blocks": nblocks, "ms_per_block": ms, "host_enqueue_ms_per_block": host_ms,
-            "msps": eng.L / (ms * 1e-3) / 1e6,
+    return {"blocks": nblocks, "inputs": eng.n_inputs, "ms_per_block": ms,
+            "host_enqueue_ms_per_block": host_ms,
+            "msps": eng.n_inputs * eng.L / (ms * 1e-3) / 1e6,
             "realtime_factor": eng.L / (ms * 1e-3) / eng.samprate,
             "launches": {k: cc.launches[k] for k in ("channelize", "noise_est")},
-            "due_blocks": due, "finite": outputs_finite(out)}
+            "due_blocks": due, "finite": outputs_finite(out),
+            "if_power_shape": list(out["_frontend"]["if_power"].shape)}
 
 
 def stage_split(eng, params, device) -> dict:
@@ -1045,10 +1093,11 @@ def check_recurrences(args: dict) -> dict:
     }
 
 
-def nbfm400_scene(eng, params, device, nblocks: int = 16) -> dict:
-    """Known answer through Engine.step: channel NBFM_K carries a carrier FM-
+def nbfm400_scene(eng, params, device, nblocks: int = 16, k: int = NBFM_K,
+                  quiet: int = NBFM_QUIET) -> dict:
+    """Known answer through Engine.step: channel k carries a carrier FM-
     modulated by 1 kHz at 2.5 kHz deviation (the port's sig_gen), over noise
-    of density NBFM_N0; channel NBFM_QUIET has noise only. Returns the
+    of density NBFM_N0; channel `quiet` has noise only. Returns the
     carrier channel's audio peak over blocks 4.., each channel's send flags
     and the kernels' launches."""
     from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
@@ -1056,7 +1105,7 @@ def nbfm400_scene(eng, params, device, nblocks: int = 16) -> dict:
 
     g = eng.groups["nbfm"]
     freqs = [c.freq for c in g.spec.channels]
-    cfg = SigGenConfig(samprate=eng.samprate, real=False, carrier_hz=freqs[NBFM_K],
+    cfg = SigGenConfig(samprate=eng.samprate, real=False, carrier_hz=freqs[k],
                        amplitude=0.1, noise_n0=NBFM_N0, fm_deviation_hz=2500.0, tone_hz=1000.0)
     st = siggen_init(cfg, seed=8, device=device)
     state = eng.init_state()
@@ -1066,12 +1115,12 @@ def nbfm400_scene(eng, params, device, nblocks: int = 16) -> dict:
         st, blk = siggen_block(cfg, st, eng.L)
         state, out = eng.step(state, params, blk)
         o = out["nbfm"]
-        audio.append(o["audio"][NBFM_K])
-        send_k.append(bool(o["info"]["send"][NBFM_K]))
-        send_q.append(bool(o["info"]["send"][NBFM_QUIET]))
+        audio.append(o["audio"][k])
+        send_k.append(bool(o["info"]["send"][k]))
+        send_q.append(bool(o["info"]["send"][quiet]))
     launches = dict(cc.launches)
     due = sum(1 for b in range(nblocks) if b < 2 or b % eng.noise_every == 0)
-    return {"channel": NBFM_K, "carrier_hz": freqs[NBFM_K], "quiet_channel": NBFM_QUIET,
+    return {"channel": k, "carrier_hz": freqs[k], "quiet_channel": quiet,
             "blocks": nblocks, "audio_shape": list(out["nbfm"]["audio"].shape),
             "peak_hz": peak_hz(torch.cat(audio[4:]).cpu().numpy(), g.spec.samprate),
             "send_carrier": send_k, "send_quiet": send_q,
@@ -1151,15 +1200,15 @@ def check_wfm_scene(sc: dict) -> None:
         fail(f"wfm: audio finite {sc['finite']}, shape {sc['audio_shape']}")
 
 
-def check_nbfm400_scene(sc: dict) -> None:
+def check_nbfm400_scene(sc: dict, what: str = "nbfm400", shape=(400, 480)) -> None:
     if abs(sc["peak_hz"] - 1000.0) > 10.0:
-        fail(f"nbfm400: channel {sc['channel']} audio peaks at {sc['peak_hz']} Hz, want 1000")
+        fail(f"{what}: channel {sc['channel']} audio peaks at {sc['peak_hz']} Hz, want 1000")
     if not all(sc["send_carrier"][2:]):
-        fail(f"nbfm400: the carrier's channel did not keep its squelch open: {sc['send_carrier']}")
+        fail(f"{what}: the carrier's channel did not keep its squelch open: {sc['send_carrier']}")
     if any(sc["send_quiet"][8:]):
-        fail(f"nbfm400: the noise-only channel sends after warm-up: {sc['send_quiet']}")
-    if not sc["finite"] or sc["audio_shape"] != [400, 480]:
-        fail(f"nbfm400: audio finite {sc['finite']}, shape {sc['audio_shape']}")
+        fail(f"{what}: the noise-only channel sends after warm-up: {sc['send_quiet']}")
+    if not sc["finite"] or sc["audio_shape"] != list(shape):
+        fail(f"{what}: audio finite {sc['finite']}, shape {sc['audio_shape']}")
 
 
 VHF_CONF = ROOT / "examples" / "radiod@2m.conf"
@@ -1409,6 +1458,280 @@ def check_vhf_daemon(v: dict) -> None:
         fail(f"vhf_daemon: a kernel of the path was not launched: {v['launches']}")
 
 
+# ------------------------------------------- several inputs, odd masters, beam
+MULTI_B = 4  # bench.py's rx888x4: four 129.6 Msps real streams on one card
+MULTI_TONE_INPUT = 2  # the stream that carries the multife scene's tone
+ODD_FS = 2_400_000  # an RTL-SDR: complex 2.4 Msps, N 60,000 (not whole 128-bin tiles)
+ODD_K, ODD_QUIET = 27, 60  # the odd master's FM channel and a noise-only one
+BEAM_FS = 1_024_000  # tests/test_beam.py's master
+
+
+def multife_scene(eng, params, device, seed: int = 21) -> dict:
+    """Known answer on rx888x<B>: a tone 700 Hz above channel k's dial
+    (bin-centred) on stream MULTI_TONE_INPUT only, noise of density N0_SCENE
+    on every stream; 10 blocks, the first 2 discarded. The tone's channel's
+    audio peak, its baseband power against its twins' on the other streams,
+    the per-input IF power and the kernels' launches."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+
+    m, L, B = eng.master, eng.L, eng.n_inputs
+    hz = eng.samprate / m.N
+    per = eng.groups["hf"].C // B
+    freqs = [c.freq for c in eng.groups["hf"].spec.channels[:per]]
+    k, kbin = pick_on_grid(freqs, 700.0, hz, 100, 900)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    std = float(np.sqrt(N0_SCENE * eng.samprate / 2.0))
+
+    def block(b: int) -> torch.Tensor:
+        n = torch.arange(L, dtype=torch.int64, device=device) + b * L
+        x = std * torch.randn((B, L), generator=gen, device=device)
+        x[MULTI_TONE_INPUT] += 0.1 * torch.cos(
+            (2 * np.pi / m.N) * torch.remainder(n * kbin, m.N).to(torch.float64)).to(torch.float32)
+        return x
+
+    state = eng.init_state()
+    cc.reset_launches()
+    outs = []
+    for b in range(10):
+        state, out = eng.step(state, params, block(b))
+        outs.append(out)
+    launches = {name: cc.launches[name] for name in ("channelize", "noise_est")}
+    row = MULTI_TONE_INPUT * per + k
+    twins = [b * per + k for b in range(B) if b != MULTI_TONE_INPUT]
+    hf = [o["hf"] for o in outs[2:]]
+    bbp = torch.stack([o["info"]["baseband_power"] for o in hf]).mean(0).cpu().numpy()
+    audio = torch.cat([o["audio"][row] for o in hf]).cpu().numpy()
+    return {"k": k, "row": row, "twin_rows": twins, "tone_offset_hz": kbin * hz - freqs[k],
+            "peak_hz": peak_hz(audio, eng.groups["hf"].spec.samprate),
+            "p_row": float(bbp[row]), "p_twins": [float(bbp[t]) for t in twins],
+            "twin_ratio_min": float(bbp[row] / max(bbp[twins].max(), 1e-30)),
+            "if_power": outs[-1]["_frontend"]["if_power"].cpu().tolist(),
+            "finite": outputs_finite(outs[-1]), "launches": launches, "blocks": 10,
+            "due_blocks": sum(1 for b in range(10) if b < 2 or b % eng.noise_every == 0)}
+
+
+def check_multife_scene(sc: dict) -> None:
+    if abs(sc["peak_hz"] - sc["tone_offset_hz"]) > 10.0:
+        fail(f"multife: row {sc['row']} audio peaks at {sc['peak_hz']} Hz, want "
+             f"{sc['tone_offset_hz']}")
+    if sc["twin_ratio_min"] <= 100.0:
+        fail(f"multife: the tone's channel is {sc['twin_ratio_min']}x its twins on the other "
+             "streams, want > 100x")
+    if len(sc["if_power"]) != MULTI_B or not sc["finite"]:
+        fail(f"multife: if_power {sc['if_power']}, finite {sc['finite']}")
+    if sc["launches"] != {"channelize": sc["blocks"], "noise_est": sc["due_blocks"]}:
+        fail(f"multife: launches {sc['launches']}, want channelize {sc['blocks']}, "
+             f"noise_est {sc['due_blocks']}")
+
+
+def odd_master_groups(rt):
+    """bench.py's nbfm400 layout at an RTL-SDR's rate: 80 NBFM channels at
+    24 kHz evenly across +-0.45 fs of a complex 2.4 Msps master."""
+    freqs = np.linspace(-0.45 * ODD_FS, 0.45 * ODD_FS, 80)
+    return [rt.GroupSpec(name="nbfm", demod="fm", samprate=24_000, channels=tuple(
+        rt.ChannelSpec(freq=float(f), low=-8000.0, high=8000.0) for f in freqs))]
+
+
+def beam_groups(rt, a: complex, b: complex):
+    """tests/test_beam.py's beam group: I/Q out, AGC off, channels at 100 and
+    110 kHz, antenna weights a (I rail) and b (Q rail)."""
+    return [rt.GroupSpec(name="beam", demod="iq", samprate=16_000, agc=False, beam=True,
+                         a_weight=a, b_weight=b, channels=tuple(
+                             rt.ChannelSpec(freq=f, low=-6000.0, high=6000.0, gain_db=0.0)
+                             for f in (100_000.0, 110_000.0)))]
+
+
+def beam_scene(rt, device) -> dict:
+    """tests/test_beam.py's scene on the card: antenna A (100 kHz) on the I
+    rail, antenna B (110 kHz) on Q, through both weight pairs, 10 blocks
+    each; the selected channel's power over the nulled one's, in dB (>= 40
+    dB is test_beam.py's bound), and the beamforming channelizer's and
+    kernel B's times at these shapes."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+
+    out = {"pairs": []}
+    for a, b, want in ((0.5 + 0j, 0.5 + 0j, 0), (0.5 + 0j, -0.5 + 0j, 1)):
+        eng = rt.Engine(samprate=BEAM_FS, real=False, groups=beam_groups(rt, a, b))
+        params, state, L = eng.init_params(), eng.init_state(), eng.L
+        cc.reset_launches()
+        for k in range(10):
+            t = (torch.arange(L, dtype=torch.float64, device=device) + k * L) / BEAM_FS
+            x = torch.complex(0.1 * torch.cos(2 * np.pi * 100_000 * t),
+                              0.1 * torch.cos(2 * np.pi * 110_000 * t)).to(torch.complex64)
+            state, o = eng.step(state, params, x)
+        p = o["beam"]["info"]["baseband_power"].cpu().numpy()
+        iso = float(10 * np.log10(p[want] / max(p[1 - want], 1e-30)))
+        due = sum(1 for j in range(10) if j < 2 or j % eng.noise_every == 0)
+        out["pairs"].append({"a": str(a), "b": str(b), "selected": want, "p": p.tolist(),
+                             "isolation_db": iso, "launches": dict(cc.launches),
+                             "due_blocks": due})
+    g, prm = eng.groups["beam"], params["beam"]
+    _, F = eng.master_step(eng.init_state()["master"], x)
+    out["channelize_beam_ms"] = device_ms(lambda: g._channelize(prm, F))
+    out["kernels"] = {k["name"]: k for k in check_kernels(eng, params, F, "beam")}
+    return out
+
+
+def check_beam_scene(bs: dict) -> None:
+    for pr in bs["pairs"]:
+        if pr["isolation_db"] < 40.0 or pr["p"][pr["selected"]] <= 1e-5:
+            fail(f"beam: antenna isolation {pr['isolation_db']} dB < 40 dB or no power: {pr}")
+        if pr["launches"]["channelize"] != 0 or pr["launches"]["noise_est"] != pr["due_blocks"]:
+            fail(f"beam: launches {pr['launches']}, want no channelize and noise_est "
+                 f"{pr['due_blocks']}")
+    if set(bs["kernels"]) != {"noise_est"}:
+        fail(f"beam: kernels {sorted(bs['kernels'])}, want noise_est alone")
+
+
+MFD_K0, MFD_K1 = DAEMON_K, 20_000  # raster channels of the carriers on stream 0 and stream 1
+
+
+def multife_daemon_config(dport: int, sport: int) -> tuple[str, list[str], float, float]:
+    """examples/radiod@rx888-wspr.conf on two front ends (the changes listed
+    in `reduced`): [adc] a sig_gen carrier 1,500 Hz above raster channel
+    MFD_K0's dial, a second sig_gen [adc2] with one 1,500 Hz above channel
+    MFD_K1's, and a small usb section on [adc2] at both dials. Returns
+    (config text, reduced, dial 0, dial 1)."""
+    import re
+
+    text = WSPR_CONF.read_text()
+    d0, d1 = (2_600_000 + k * 1_815 for k in (MFD_K0, MFD_K1))
+    adc = ("[adc]\ndevice = sig_gen\nsamprate = 129m6\nreal = yes\n"
+           f"carrier = {d0 + 1500}\namplitude = -60\nn0 = -138\n\n"
+           "[adc2]\ndevice = sig_gen\nsamprate = 129m6\nreal = yes\n"
+           f"carrier = {d1 + 1500}\namplitude = -40\nn0 = -138\n\n")
+    text, n = re.subn(r"\[adc\].*?(?=\n\[hf\])", adc, text, flags=re.S)
+    if n != 1:
+        fail("the daemon config's [adc] section was not found")
+    text = text.replace("hardware = adc\n", "hardware = adc adc2\n", 1)
+    text = text.replace("status = hffarm.local", f"status = 127.0.0.1:{sport}")
+    text = text.replace("data = hffarm-pcm.local", f"data = 127.0.0.1:{dport}")
+    text = text.replace("[global]\n", "[global]\nsap = no\nadvertise = no\n", 1)
+    text += (f"\n[fe1usb]\nhardware = adc2\nmode = usb\nsamprate = 12k\nsnr-squelch = yes\n"
+             f"squelch-open = 8\nsquelch-close = 7\nfreq = {d1} {d0}\n")
+    reduced = [
+        "[adc]: device = rtp (the SDR host's 129.6 Msps s16be stream) -> device = sig_gen at "
+        f"samprate 129m6, real = yes: carrier {d0 + 1500} Hz (raster channel {MFD_K0}'s dial "
+        "+ 1,500 Hz) at -60 dBFS, noise density -138 dBFS/Hz",
+        f"[adc2] added (hardware = adc adc2): sig_gen at 129m6 real, carrier {d1 + 1500} Hz "
+        f"(raster channel {MFD_K1}'s dial + 1,500 Hz) at -40 dBFS, noise -138 dBFS/Hz",
+        f"[fe1usb] added on [adc2]: usb at 12 kHz with SNR squelch, dials {d1} and {d0}",
+        f"data, status: hffarm-pcm.local, hffarm.local -> 127.0.0.1:{dport}, 127.0.0.1:{sport}",
+        "sap = no, advertise = no: no SAP or mDNS announcements (the run has no network)",
+    ]
+    return text, reduced, float(d0), float(d1)
+
+
+def run_multife_daemon(card: str, device) -> dict:
+    """The rx888-wspr farm on stream 0 and a usb section on stream 1 of one
+    daemon (two [hardware] sig_gen sections, time-shards 8), RTP received
+    on 127.0.0.1: each carrier must demodulate on its own input only, with
+    no overflow or drop, and each channel's status must show its input's
+    IF power. p50/p99 block time are reported, not held to a limit. Then
+    both kernels against their plain versions at the daemon's shapes (the
+    usb section's channels read stream 1's row of the padded spectra)."""
+    import select
+    import socket
+
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, decode_status
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    dport, sport = _free_port(), _free_port()
+    text, reduced, d0, d1 = multife_daemon_config(dport, sport)
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+    rx.bind(("127.0.0.1", dport))
+    rx.setblocking(False)
+    t0 = time.perf_counter()
+    rd = Radiod(load_config(text), use_network=True, data_port=dport, status_port=sport)
+    t_init = time.perf_counter() - t0
+    chans = {(c.group, c.freq): c for c in rd.chans.values()}
+    hf0, hf1 = chans[("hf", d0)], chans[("hf", d1)]
+    us1, us0 = chans[("fe1usb", d1)], chans[("fe1usb", d0)]
+    pkts: dict[int, list] = {}
+
+    def drain():
+        while select.select([rx], [], [], 0)[0]:
+            h, payload = RtpHeader.unpack(rx.recv(65536))
+            pkts.setdefault(h.ssrc, []).append((h.seq, payload))
+
+    def audio(ch) -> np.ndarray:
+        got = sorted(pkts.get(ch.ssrc, []))
+        a = np.concatenate([np.frombuffer(p, ">i2") for _, p in got] or [np.zeros(0, ">i2")])
+        return a.astype(np.float64)
+
+    D = rd._time_shards
+    for _ in range(4):  # warm-up: cuFFT plans, the squelches open
+        rd.step_block()
+        drain()
+    pkts.clear()
+    cc.reset_launches()
+    j0 = rd.state["host"]["jobnum"]
+    rd._t_n = 0
+    t0 = time.perf_counter()
+    for _ in range(16):
+        rd.step_block()
+        drain()
+    elapsed = time.perf_counter() - t0
+    blocks = 16 * D
+    p50, p99 = rd.latency_percentiles()
+    launches = dict(cc.launches)
+    due = sum(1 for b in range(j0, rd.state["host"]["jobnum"]) if b % rd.engine.noise_every == 0)
+    st = {name: decode_status(rd.encode_channel_status(ch))[1] for name, ch in
+          (("hf0", hf0), ("us1", us1))}
+    out = {"phase": "multife_daemon", "card": card, "config": str(WSPR_CONF.relative_to(ROOT)),
+           "reduced": reduced, "init_s": t_init, "inputs": rd.engine.n_inputs,
+           "channels": {n: g.C for n, g in rd.engine.groups.items()}, "time_shards": D,
+           "blocks": blocks, "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+           "mean_ms": elapsed * 1e3 / blocks, "msps": blocks * rd.engine.L * 2 / elapsed / 1e6,
+           "realtime_factor": rd.cfg.blocktime / p50 if p50 else None,
+           "if_power_in_db": [float(10 * np.log10(v)) for v in rd.if_power_in],
+           "status_if_power_db": {n: float(f[T.IF_POWER]) for n, f in st.items()},
+           "launches": launches, "due_blocks": due,
+           "egress_overflows": rd.egress_overflows, "block_drops": rd.block_drops,
+           "ssrcs": {"hf0": hf0.ssrc, "hf1": hf1.ssrc, "us1": us1.ssrc, "us0": us0.ssrc}}
+    for name, ch in (("hf0", hf0), ("us1", us1)):
+        a = audio(ch)
+        out[f"{name}_tone_hz"] = peak_hz(a, ch.samprate) if a.size else None
+    out["packets"] = {n: len(pkts.get(ch.ssrc, [])) for n, ch in
+                      (("hf0", hf0), ("hf1", hf1), ("us1", us1), ("us0", us0))}
+    rx.close()
+    # both kernels at the daemon's shapes on one block's padded spectra
+    blk = float(np.sqrt(1.585e-14 * rd.engine.samprate / 2.0)) * torch.randn(
+        (2, rd.engine.L), generator=torch.Generator(device=device).manual_seed(22), device=device)
+    _, F = rd.engine.master_step(rd.engine.init_state()["master"], blk)
+    out["kernels_at_daemon"] = {
+        gname: {k["name"]: {key: k[key] for key in ("max_abs_err", "max_rel_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "library_ms", "shape")
+                            if key in k}
+                for k in check_kernels(rd.engine, rd.params, F, gname)}
+        for gname in ("hf", "fe1usb")}
+    for edge_, _ in rd.edges.values():
+        edge_.close()
+    return out
+
+
+def check_multife_daemon(v: dict) -> None:
+    for name in ("hf0", "us1"):
+        if v[f"{name}_tone_hz"] is None or abs(v[f"{name}_tone_hz"] - 1500.0) > 10.0:
+            fail(f"multife_daemon: {name}'s carrier at {v[f'{name}_tone_hz']} Hz, want 1500")
+    if v["packets"]["hf1"] or v["packets"]["us0"]:
+        fail(f"multife_daemon: a carrier demodulated off its own input: {v['packets']}")
+    if v["egress_overflows"] or v["block_drops"]:
+        fail(f"multife_daemon: overflows {v['egress_overflows']}, drops {v['block_drops']}")
+    lo, hi = v["if_power_in_db"]
+    sif = v["status_if_power_db"]
+    if abs(sif["hf0"] - lo) > 1e-3 or abs(sif["us1"] - hi) > 1e-3 or hi - lo < 10.0:
+        fail(f"multife_daemon: status IF power {sif}, per input {v['if_power_in_db']}")
+    want = {"channelize": 2 * v["blocks"], "noise_est": 2 * v["due_blocks"]}  # two groups
+    if {k: v["launches"][k] for k in want} != want:
+        fail(f"multife_daemon: launches {v['launches']}, want channelize {2 * v['blocks']}, "
+             f"noise_est {2 * v['due_blocks']}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1584,6 +1907,96 @@ def main() -> None:
         kern.update(launches=vd["launches"][name], in_daemon_ms=vd["kernel_in_daemon_ms"][name],
                     at_c400=recur_c400[name])
     kernels += list(recur.values())
+    torch.cuda.empty_cache()
+
+    # phase 10: bench.py's rx888x4 (four 129.6 Msps real streams, one group
+    # of 4,000 SSB channels over all four, the sweep on stream 0): both
+    # kernels with input offsets against their plain versions, the known
+    # answer, 64 timed steps and a trace of 8
+    t0 = time.perf_counter()
+    meng = rt.Engine(samprate=FS, real=True, groups=rx888_groups(rt, MULTI_B), n_inputs=MULTI_B)
+    mparams = meng.init_params()
+    t_build = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(20)
+    _, F = meng.master_step(meng.init_state()["master"],
+                            0.05 * torch.randn((MULTI_B, meng.L), generator=gen, device=device))
+    at_multi = {k["name"]: k for k in check_kernels(meng, mparams, F)}
+    del F
+    ms = multife_scene(meng, mparams, device)
+    check_multife_scene(ms)
+    tm = timed_run(meng, mparams, device)
+    if tm["launches"] != {"channelize": tm["blocks"], "noise_est": tm["due_blocks"]} \
+            or not tm["finite"] or tm["if_power_shape"] != [MULTI_B]:
+        fail(f"multife timed run: launches {tm['launches']}, finite {tm['finite']}, "
+             f"if_power {tm['if_power_shape']}")
+    busy = device_busy(meng, mparams, device, out_dir, trace="multife_trace.json")
+    emit({"phase": "multife", "card": card, "config": "bench.py rx888x4", "engine_s": t_build,
+          "inputs": MULTI_B, "L": meng.L, "bins": meng.master.bins, "ld": meng.ld,
+          "groups": {n: {"C": g.C, "n_bins": g.n_bins, "olen": g.olen}
+                     for n, g in meng.groups.items()},
+          "kernels": {n: {k: v[k] for k in keys if k in v} for n, v in at_multi.items()},
+          "scene": ms, "timed": tm, **busy,
+          "device_idle_share": 1.0 - busy["busy_ms_per_block"] / tm["ms_per_block"]})
+    for kern in kernels[:2]:
+        kern["at_multife"] = {**{k: at_multi[kern["name"]][k] for k in keys
+                                 if k in at_multi[kern["name"]]},
+                              "launches": ms["launches"][kern["name"]],
+                              "in_step_ms": busy["kernel_in_step_ms_per_launch"][kern["name"]]}
+    del meng, mparams
+    torch.cuda.empty_cache()
+
+    # phase 11: an RTL-SDR's 2.4 Msps complex master (N 60,000, not whole
+    # 128-bin tiles): the per-element channelizer on cuFFT and kernel B on
+    # per-element windows; the FM known answer, 64 timed steps, a trace
+    oeng = rt.Engine(samprate=ODD_FS, real=False, groups=odd_master_groups(rt))
+    oparams = oeng.init_params()
+    og = oeng.groups["nbfm"]
+    if og.tiled:
+        fail("odd_master: the group took the tiled channelizer")
+    _, F = oeng.master_step(oeng.init_state()["master"],
+                            noise_blocks(oeng, 1, NBFM_N0, device, 23)[0])
+    at_odd = {k["name"]: k for k in check_kernels(oeng, oparams, F, "nbfm")}
+    if set(at_odd) != {"noise_est"} or at_odd["noise_est"]["shape"]["window"] != "per-element":
+        fail(f"odd_master: kernels {at_odd}")
+    chan_ms = device_ms(lambda: og._channelize(oparams["nbfm"], F))
+    del F
+    osc = nbfm400_scene(oeng, oparams, device, k=ODD_K, quiet=ODD_QUIET)
+    check_nbfm400_scene(osc, "odd_master", (80, 480))
+    if osc["launches"]["channelize"] != 0 or osc["launches"]["noise_est"] != osc["due_blocks"]:
+        fail(f"odd_master: launches {osc['launches']}, want no channelize and noise_est "
+             f"{osc['due_blocks']}")
+    to_ = timed_run(oeng, oparams, device, n0=NBFM_N0)
+    busy = device_busy(oeng, oparams, device, out_dir, n0=NBFM_N0, trace="odd_master_trace.json")
+    emit({"phase": "odd_master", "card": card, "config": "bench.py nbfm400 layout at 2.4 Msps",
+          "N": oeng.master.N, "n_bins": og.n_bins, "olen": og.olen, "noise_bins": og.noise_bins,
+          "channelize_per_element_ms": chan_ms,
+          "kernels": {n: {k: v[k] for k in keys if k in v} for n, v in at_odd.items()},
+          "scene": osc, "timed": to_, **busy,
+          "device_idle_share": 1.0 - busy["busy_ms_per_block"] / to_["ms_per_block"]})
+    if not to_["finite"]:
+        fail("odd_master timed run: non-finite audio")
+    kernels[1]["at_odd_master"] = {
+        **{k: at_odd["noise_est"][k] for k in keys if k in at_odd["noise_est"]},
+        "launches": osc["launches"]["noise_est"],
+        "in_step_ms": busy["kernel_in_step_ms_per_launch"]["noise_est"]}
+    del oeng, oparams
+
+    # phase 12: dual-antenna beamforming (tests/test_beam.py's scene)
+    bs = beam_scene(rt, device)
+    check_beam_scene(bs)
+    emit({"phase": "beam", "card": card, "pairs": bs["pairs"],
+          "channelize_beam_ms": bs["channelize_beam_ms"],
+          "kernels": {n: {k: v[k] for k in keys if k in v} for n, v in bs["kernels"].items()}})
+    kernels[1]["beam_launches"] = sum(pr["launches"]["noise_est"] for pr in bs["pairs"])
+    torch.cuda.empty_cache()
+
+    # phase 13: the daemon on two front ends (the rx888-wspr farm on stream
+    # 0, a usb section on stream 1)
+    md = run_multife_daemon(card, device)
+    check_multife_daemon(md)
+    emit(md)
+    for kern in kernels[:2]:
+        kern["multife_daemon_launches"] = md["launches"][kern["name"]]
 
     if "jax" in sys.modules or any(n == "ka9q_radio_tpu" or n.startswith("ka9q_radio_tpu.")
                                    for n in sys.modules):

@@ -6,7 +6,10 @@
 // computes, per channel c:
 //   x[j]  = F[row(tile_lo[c] + j/128) * 128 + j%128] * resp[c, j]   (j < S)
 //           rows clamp to [0, nrows) for a real master, wrap mod nrows for a
-//           complex one; bins past m_bins read as zero;
+//           complex one; bins past m_bins read as zero; with several inputs
+//           F is [B, ld] and the row is then read from row inputs[c] of it
+//           (placed inside the channel's own stream first, offset after:
+//           no clamped row reads the neighbouring stream);
 //   Y[t]  = sum_j x[j] * E[j, t]                                   (t < olen)
 //   Y     = conj(Y) for an inverted slice (real master, shift < 0);
 //   out   = Y * exp(2 pi i ((slope[c] * (n - olen + t)) mod n) / n).
@@ -35,7 +38,7 @@
 // the ring through an unswizzled descriptor. Smaller tiles (16 or 32 rows,
 // when a wider slice's X tile leaves less shared memory) run
 // mma.sync.m16n8k8 on the same layout. A slice too wide for even a 16-row
-// X tile (n > 1296) takes it in K segments of at most 2592 rows: gather and
+// X tile (n > 1280) takes it in K segments of at most 2560 rows: gather and
 // fold one segment's fold bins, run its chunks, then the next segment.
 //
 // What bounds it: at the rx888 shapes (C = 1000, n = 300, olen = 240) the
@@ -159,7 +162,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // warps split the 64 columns kCols / (8 / kWM) apiece (kWM n8 tiles).
 template <int kWM>
 __global__ void __launch_bounds__(kThreads, 1)
-channelize_kernel(const float2* __restrict__ F, long long m_bins, int nrows, int real_master,
+channelize_kernel(const float2* __restrict__ F, long long m_bins, long long ld, int nrows,
+                  int real_master, const int* __restrict__ inputs,
                   const float2* __restrict__ resp, const int* __restrict__ tile_lo,
                   const int* __restrict__ slope, const int* __restrict__ shifts,
                   const float4* __restrict__ Bop, int C, int S, int olen, int n_bins, int n_pad,
@@ -181,11 +185,12 @@ channelize_kernel(const float2* __restrict__ F, long long m_bins, int nrows, int
   const bool active = ct < ncol;
   const float4* bsrc = Bop + (size_t)ct * nchunks * (kChunkFloats / 4);
 
-  // the row tile's first tile rows, ramp slopes mod n and conj flags
-  __shared__ int s_lo[kRows], s_slope[kRows], s_inv[kRows];
+  // the row tile's first tile rows, inputs, ramp slopes mod n and conj flags
+  __shared__ int s_lo[kRows], s_in[kRows], s_slope[kRows], s_inv[kRows];
   for (int r = threadIdx.x; r < kRows; r += kThreads) {
     const int c = c0 + r;
     s_lo[r] = c < C ? tile_lo[c] : 0;
+    s_in[r] = c < C && inputs != nullptr ? inputs[c] : 0;
     s_slope[r] = c < C ? (slope[c] % n_bins + n_bins) % n_bins : 0;
     s_inv[r] = c < C && real_master && shifts[c] < 0;
   }
@@ -256,10 +261,12 @@ channelize_kernel(const float2* __restrict__ F, long long m_bins, int nrows, int
             f[u][mt][0] = f[u][mt][1] = x[u][mt][0] = x[u][mt][1] = z;
             if (idx < items && c < C && k < n_bins && j < S) {
               const float2* rc = resp + (long long)c * S;
+              const float2* Fc = F + (long long)s_in[r] * ld;  // the channel's stream
               const long long bin = tile_bin(s_lo[r], j);
               if ((j & 1) == 0 && k + 1 < n_bins && bin + 1 < m_bins) {
                 // j even: the pair's two bins share a tile row and 16 bytes
-                const float4 fv = *reinterpret_cast<const float4*>(F + bin);
+                // (ld is even: every stream's row starts 16-byte aligned)
+                const float4 fv = *reinterpret_cast<const float4*>(Fc + bin);
                 const float4 xv = *reinterpret_cast<const float4*>(rc + j);
                 f[u][mt][0] = make_float2(fv.x, fv.y);
                 f[u][mt][1] = make_float2(fv.z, fv.w);
@@ -267,12 +274,12 @@ channelize_kernel(const float2* __restrict__ F, long long m_bins, int nrows, int
                 x[u][mt][1] = make_float2(xv.z, xv.w);
               } else {
                 if (bin < m_bins) {
-                  f[u][mt][0] = F[bin];
+                  f[u][mt][0] = Fc[bin];
                   x[u][mt][0] = rc[j];
                 }
                 const long long bin1 = tile_bin(s_lo[r], j + 1);
                 if (k + 1 < n_bins && j + 1 < S && bin1 < m_bins) {
-                  f[u][mt][1] = F[bin1];
+                  f[u][mt][1] = Fc[bin1];
                   x[u][mt][1] = rc[j + 1];
                 }
               }
@@ -387,10 +394,10 @@ size_t smem_bytes(int wm, int kseg) {
 }
 
 template <int kWM>
-int launch(const void* F, long long m_bins, int nrows, int real_master, const void* resp,
-           const void* tile_lo, const void* slope, const void* shifts, const void* Bop, int C,
-           int S, int olen, int n_bins, int n_pad, int kseg, float w, void* out,
-           cudaStream_t stream) {
+int launch(const void* F, long long m_bins, long long ld, int nrows, int real_master,
+           const void* inputs, const void* resp, const void* tile_lo, const void* slope,
+           const void* shifts, const void* Bop, int C, int S, int olen, int n_bins, int n_pad,
+           int kseg, float w, void* out, cudaStream_t stream) {
   const size_t smem = smem_bytes(kWM, kseg);
   cudaError_t err = cudaFuncSetAttribute(channelize_kernel<kWM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -409,20 +416,21 @@ int launch(const void* F, long long m_bins, int nrows, int real_master, const vo
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, channelize_kernel<kWM>, (const float2*)F, m_bins, nrows,
-                           real_master, (const float2*)resp, (const int*)tile_lo,
-                           (const int*)slope, (const int*)shifts, (const float4*)Bop, C, S, olen,
-                           n_bins, n_pad, kseg, ncol, w, (float2*)out);
+  err = cudaLaunchKernelEx(&cfg, channelize_kernel<kWM>, (const float2*)F, m_bins, ld, nrows,
+                           real_master, (const int*)inputs, (const float2*)resp,
+                           (const int*)tile_lo, (const int*)slope, (const int*)shifts,
+                           (const float4*)Bop, C, S, olen, n_bins, n_pad, kseg, ncol, w,
+                           (float2*)out);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-constexpr size_t kSmemMax = 232448 - 3 * 64 * sizeof(int);  // a block's limit, less s_lo etc.
+constexpr size_t kSmemMax = 232448 - 4 * 64 * sizeof(int);  // a block's limit, less s_lo etc.
 
 // Row tile (16 kWM channels) and K rows of X per segment for the padded
 // fold n_pad: the most rows (64, 32, 16) whose whole X tile (2 n_pad K rows)
 // fits in shared memory; else 16 rows and segments of the most whole chunks
-// that fit (2592 K rows, 1296 fold bins).
+// that fit (2560 K rows, 1280 fold bins).
 void plan(int n_pad, int* wm, int* kseg) {
   for (*wm = 4; *wm >= 1; *wm >>= 1)
     if (smem_bytes(*wm, 2 * n_pad) <= kSmemMax) {
@@ -437,23 +445,26 @@ void plan(int n_pad, int* wm, int* kseg) {
 
 // All pointers are device pointers; stream is a cudaStream_t. Bop is the
 // constant for (n_bins, olen) from channelize_operand, n_pad = n_bins rounded up
-// to 16. Returns the cudaError_t of the launch (0 on success).
-extern "C" int ka9q_channelize(const void* F, long long m_bins, int nrows, int real_master,
-                               const void* resp, const void* tile_lo, const void* slope,
-                               const void* shifts, const void* Bop, int C, int S, int olen,
-                               int n_bins, int n_pad, float w, void* out, void* stream) {
+// to 16. inputs is null for one spectrum F [m_bins]; else F is [B, ld], ld
+// even, and inputs[c] < B. Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int ka9q_channelize(const void* F, long long m_bins, long long ld, int nrows,
+                               int real_master, const void* inputs, const void* resp,
+                               const void* tile_lo, const void* slope, const void* shifts,
+                               const void* Bop, int C, int S, int olen, int n_bins, int n_pad,
+                               float w, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int wm, kseg;
   plan(n_pad, &wm, &kseg);
   switch (wm) {
     case 4:
-      return launch<4>(F, m_bins, nrows, real_master, resp, tile_lo, slope, shifts, Bop, C, S,
-                       olen, n_bins, n_pad, kseg, w, out, st);
+      return launch<4>(F, m_bins, ld, nrows, real_master, inputs, resp, tile_lo, slope, shifts,
+                       Bop, C, S, olen, n_bins, n_pad, kseg, w, out, st);
     case 2:
-      return launch<2>(F, m_bins, nrows, real_master, resp, tile_lo, slope, shifts, Bop, C, S,
-                       olen, n_bins, n_pad, kseg, w, out, st);
+      return launch<2>(F, m_bins, ld, nrows, real_master, inputs, resp, tile_lo, slope, shifts,
+                       Bop, C, S, olen, n_bins, n_pad, kseg, w, out, st);
     default:
-      return launch<1>(F, m_bins, nrows, real_master, resp, tile_lo, slope, shifts, Bop, C, S,
-                       olen, n_bins, n_pad, kseg, w, out, st);
+      return launch<1>(F, m_bins, ld, nrows, real_master, inputs, resp, tile_lo, slope, shifts,
+                       Bop, C, S, olen, n_bins, n_pad, kseg, w, out, st);
   }
 }

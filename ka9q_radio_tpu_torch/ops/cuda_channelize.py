@@ -15,6 +15,13 @@ The kernels compute what the plain PyTorch versions compute
 `estimate_noise_keys`), not the TPU mechanics: no span window, no one-hot
 gather matmul, no 128-channel runs. Each channel reads its own rows straight
 from device memory, so any layout runs, and there is no run plan to keep.
+With several inputs, F is [B, ld] and `inputs` [C] int32 names each
+channel's row: the kernels place a channel's rows or window inside its own
+row (clamped on a real master, wrapped on a complex one) and only then add
+the row's offset, so no channel reads its neighbour's stream. ld must be
+even, so that every row starts 16 bytes aligned for the kernels' 16-byte
+loads (the engine pads rows to whole 128-bin tiles; an odd real m_bins,
+rx888's 1,620,001, would misalign every odd row).
 
 Kernel A folds the tile frame S -> n (the IDFT constant is periodic in its
 row with period n) and runs the product on the tensor cores as one real
@@ -61,9 +68,9 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _V, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _KERNELS = {
     "channelize": ("channelize.cu", "ka9q_channelize",
-                   [_V, _LL, _I, _I, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _V, _V]),
+                   [_V, _LL, _LL, _I, _I, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _V, _V]),
     "noise_est": ("noise_est.cu", "ka9q_noise_est",
-                  [_V, _LL, _I, _V, _I, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]),
+                  [_V, _LL, _LL, _I, _I, _V, _V, _I, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]),
     "pll_scan": ("recur.cu", "ka9q_pll_scan", [_V, _I, _I] + [_V] * 16),
     "goertzel": ("recur.cu", "ka9q_goertzel_block", [_V, _I, _I] + [_V] * 6),
 }
@@ -202,19 +209,41 @@ def channelize_operand(E: torch.Tensor, n_bins: int, olen: int) -> torch.Tensor:
     return T.permute(4, 0, 1, 5, 8, 6, 2, 7, 3).contiguous().reshape(-1)
 
 
+def _check_spectrum(F: torch.Tensor, m_bins: int, inputs: torch.Tensor | None, C: int,
+                    device) -> int:
+    """Check the master spectrum (and `inputs`) a kernel reads: [m_bins],
+    or [B, ld] with ld >= m_bins even and inputs [C] int32. Returns ld (0
+    for one spectrum)."""
+    if inputs is None:
+        _check(F, "F", torch.complex64, (m_bins,), device)
+        ld = 0
+    else:
+        if F.dim() != 2 or F.shape[1] < m_bins or F.shape[1] % 2:
+            raise ValueError(f"F has shape {tuple(F.shape)}: with inputs it is [B, ld], "
+                             f"ld >= {m_bins} and even (16-byte rows)")
+        _check(F, "F", torch.complex64, tuple(F.shape), device)
+        _check(inputs, "inputs", torch.int32, (C,), device)
+        ld = F.shape[1]
+    if F.data_ptr() % 16:
+        raise ValueError("F must start on a 16-byte boundary (the kernels' 16-byte loads)")
+    return ld
+
+
 def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Tensor,
                     slope: torch.Tensor, shifts: torch.Tensor, E: torch.Tensor,
                     n_bins: int, olen: int, real_master: bool, master_N: int,
-                    E_op: torch.Tensor | None = None) -> torch.Tensor:
+                    E_op: torch.Tensor | None = None,
+                    inputs: torch.Tensor | None = None) -> torch.Tensor:
     """Tiled channelizer: [C, olen] complex64 baseband from the master
-    spectrum F [m_bins] complex64, the tile params resp_tiles [C, S] c64 and
+    spectrum F [m_bins] complex64 (or [B, ld] and `inputs` [C] int32: see
+    the module docstring), the tile params resp_tiles [C, S] c64 and
     tile_lo/slope/shifts [C] int32, and the IDFT matrix E [S, olen] c64.
     Equals filterbank.tiled_channelize (its plain version). E_op is
     channelize_operand(E, n_bins, olen), the kernel's form of E, which the
     caller builds once: the kernel needs it, the CPU path does not."""
     if F.device.type == "cpu":
         return tiled_channelize(F, resp_tiles, tile_lo, slope, shifts, E, n_bins, olen,
-                                real_master, master_N)
+                                real_master, master_N, inputs)
     if F.device.type != "cuda":
         raise ValueError(f"cuda_channelize takes CPU or CUDA tensors, not {F.device}")
     C, S = resp_tiles.shape
@@ -222,7 +251,7 @@ def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Te
     if S % _CTILE or not real_master and m_bins % _CTILE:
         raise ValueError("tile frame and complex master must be whole 128-bin tiles")
     dev = F.device
-    _check(F, "F", torch.complex64, (m_bins,), dev)
+    ld = _check_spectrum(F, m_bins, inputs, C, dev)
     _check(resp_tiles, "resp_tiles", torch.complex64, (C, S), dev)
     for what, t in (("tile_lo", tile_lo), ("slope", slope), ("shifts", shifts)):
         _check(t, what, torch.int32, (C,), dev)
@@ -230,8 +259,8 @@ def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Te
     n_pad = fold_pad(n_bins)
     if n_bins * n_bins >= 2**31:
         raise ValueError("the kernel's 32-bit ramp phase needs n_bins^2 < 2^31")
-    if F.data_ptr() % 16 or resp_tiles.data_ptr() % 16:
-        raise ValueError("F and resp_tiles must start on 16-byte boundaries (16-byte loads)")
+    if resp_tiles.data_ptr() % 16:
+        raise ValueError("resp_tiles must start on a 16-byte boundary (16-byte loads)")
     if E_op is None:
         raise ValueError("the kernel takes the group's E_op = channelize_operand(E, n_bins, olen)")
     _check(E_op, "E_op", torch.float32, (2 * n_pad * 2 * (-(-olen // 32) * 32) * 2,), dev)
@@ -240,35 +269,33 @@ def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Te
         return out
     nrows = -(-m_bins // _CTILE)
     w = float(np.float32(2.0 * np.pi / n_bins))
-    _launch("channelize", dev, F.data_ptr(), m_bins, nrows, int(real_master),
+    _launch("channelize", dev, F.data_ptr(), m_bins, ld, nrows, int(real_master),
+            None if inputs is None else inputs.data_ptr(),
             resp_tiles.data_ptr(), tile_lo.data_ptr(), slope.data_ptr(), shifts.data_ptr(),
             E_op.data_ptr(), C, S, olen, n_bins, n_pad, w, out.data_ptr())
     return out
 
 
 def cuda_noise_est(F: torch.Tensor, shifts: torch.Tensor, nbins: int, real_master: bool,
-                   master_N: int, samprate: float):
+                   master_N: int, samprate: float, inputs: torch.Tensor | None = None):
     """Noise floor of every channel: (n0 [C] float32, keys [C, 2] int32),
     the keys being the int32 views of the two order statistics. Equals
     noise.estimate_noise_keys(noise.gather_noise_bins(...)) (its plain
-    version). The kernel takes windows up to csrc/noise_est.cu's kMaxW
-    bins; its launch fails (cudaErrorInvalidValue) beyond."""
+    version), in either window placement; F and inputs as in
+    cuda_channelize. The kernel takes windows up to csrc/noise_est.cu's
+    kMaxW bins; its launch fails (cudaErrorInvalidValue) beyond."""
     m_bins = master_N // 2 + 1 if real_master else master_N
     if F.device.type == "cpu":
-        return estimate_noise_keys(gather_noise_bins(F, shifts, nbins, real_master, master_N),
-                                   m_bins, samprate)
+        return estimate_noise_keys(
+            gather_noise_bins(F, shifts, nbins, real_master, master_N, inputs), m_bins, samprate)
     if F.device.type != "cuda":
         raise ValueError(f"cuda_noise_est takes CPU or CUDA tensors, not {F.device}")
-    if not noise_window_fits(nbins, real_master, master_N):
-        raise NotImplementedError(
-            "per-element noise windows (small or odd masters) are a later slice of the port")
-    W = -(-nbins // _CTILE) * _CTILE
+    tiled = noise_window_fits(nbins, real_master, master_N)
+    W = -(-nbins // _CTILE) * _CTILE if tiled else nbins
     C = shifts.shape[0]
     dev = F.device
-    _check(F, "F", torch.complex64, (m_bins,), dev)
+    ld = _check_spectrum(F, m_bins, inputs, C, dev)
     _check(shifts, "shifts", torch.int32, (C,), dev)
-    if F.data_ptr() % 16:
-        raise ValueError("F must start on a 16-byte boundary (the kernel reads two bins a load)")
     n0 = torch.empty(C, dtype=torch.float32, device=dev)
     keys = torch.empty((C, 2), dtype=torch.int32, device=dev)
     if C == 0:
@@ -276,7 +303,8 @@ def cuda_noise_est(F: torch.Tensor, shifts: torch.Tensor, nbins: int, real_maste
     i, has_next, w_lo, w_hi = _quantile_terms(W)
     corr = float(np.float32(noise_correction()))
     denom = float(np.float32(float(m_bins) * float(samprate)))
-    _launch("noise_est", dev, F.data_ptr(), m_bins, int(real_master), shifts.data_ptr(),
+    _launch("noise_est", dev, F.data_ptr(), m_bins, ld, int(real_master), int(tiled),
+            None if inputs is None else inputs.data_ptr(), shifts.data_ptr(),
             C, W, i, int(has_next), w_lo, w_hi, float(N_CUTOFF), corr, denom,
             n0.data_ptr(), keys.data_ptr())
     return n0, keys

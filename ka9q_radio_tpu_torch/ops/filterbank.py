@@ -7,10 +7,20 @@ own (smaller) output size, discards the contaminated overlap, and applies a
 fine-tune phase ramp (the reference's filter.c, Borgerding's "overlap-save
 as a multiband mixing, downsampling filter bank").
 
-The master transform is `torch.fft` (cuFFT on the card). The channel
-stage is the tiled channelizer: `tiled_channelize` here is the plain
-PyTorch version of the CUDA kernel in ops/cuda_channelize.py, which the
-engine calls (it runs this function for CPU tensors only).
+The master transform is `torch.fft` (cuFFT on the card), batched over a
+leading [B] axis for an engine of B inputs. The channel stage is the tiled
+channelizer: `tiled_channelize` here is the plain PyTorch version of the
+CUDA kernel in ops/cuda_channelize.py, which the engine calls (it runs this
+function for CPU tensors only). Groups the tiled form does not cover
+(complex masters that are not whole 128-bin tiles, n_bins^2 >= 2^31, a wide
+slice whose fold would wrap twice) take the per-element `channelize`, and
+beamforming groups `channelize_beam`: a gather and a batched inverse FFT
+(cuFFT on the card), as the JAX package computes them outside any kernel.
+
+Several inputs: F is [B, ld] (B spectra, rows ld >= m_bins bins apart; the
+engine pads them to whole 128-bin tiles, so every row starts 16-byte
+aligned) and `inputs` [C] names each channel's row; each channel's bins are
+placed (clamped or wrapped) inside its own row first, then read from it.
 
 Tiled-channelizer derivation (the slice of every channel is a contiguous
 run of master bins):
@@ -49,6 +59,11 @@ __all__ = [
     "tiled_idft_matrix",
     "build_tile_params",
     "tiled_channelize",
+    "gather_bins",
+    "channelize",
+    "finish_channelize",
+    "isb_unpack",
+    "channelize_beam",
     "fine_tune",
     "compute_tuning",
     "block_phase_adjust_q32",
@@ -112,11 +127,12 @@ def master_fft(cfg: MasterConfig, state, block: torch.Tensor):
 
     block: [L] float32 (real) or complex64 (complex) new samples.
     Returns (new_state, F): F is the [bins] complex64 spectrum of the
-    N-point window [previous M-1 samples | block].
+    N-point window [previous M-1 samples | block]. Batches over leading
+    axes: [B, L] blocks with a [B, M-1] tail give [B, bins] spectra.
     """
-    x = torch.cat([state["tail"], block])
+    x = torch.cat([state["tail"], block], dim=-1)
     F = master_transform(cfg, x)
-    new_state = {"tail": x[cfg.L:], "jobnum": state["jobnum"] + 1}
+    new_state = {"tail": x[..., cfg.L:], "jobnum": state["jobnum"] + 1}
     return new_state, F
 
 
@@ -186,19 +202,30 @@ def build_tile_params(responses: np.ndarray, shifts: np.ndarray, real_master: bo
     return resp_tiles, tile_lo, slope
 
 
+def _take(F: torch.Tensor, idx: torch.Tensor, inputs: torch.Tensor | None) -> torch.Tensor:
+    """F[idx] of one spectrum, or with `inputs` [C] F[inputs[c], idx[c]] of
+    the [B, ld] spectra (idx [C, ...])."""
+    if inputs is None:
+        return F[idx]
+    return F[inputs.to(torch.int64).reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
+
+
 def tiled_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Tensor,
                      slope: torch.Tensor, shifts: torch.Tensor, E: torch.Tensor | None,
-                     n_bins: int, olen: int, real_master: bool, master_N: int) -> torch.Tensor:
+                     n_bins: int, olen: int, real_master: bool, master_N: int,
+                     inputs: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch tiled channelizer (see module docstring).
 
-    F: [m_bins] complex64; resp_tiles [C, S] c64, tile_lo/slope/shifts [C]
-    int32 (from build_tile_params); E [S, olen] c64 (tiled_idft_matrix), or
-    None for the FFT-IDFT form of wideband slices (WFM's 9,600-bin composite,
-    whose [S, olen] constant would take hundreds of MB): E'[j, t] is periodic
-    in j with period n_bins, so the padded frame folds S -> n_bins (valid
-    while S - n_bins <= n_bins), rotates by n_bins//2 (natural -> FFT order)
-    and goes through one batched inverse FFT (cuFFT on the card); the
-    engine calls this form directly, on the card too.
+    F: [m_bins] complex64, or [B, ld >= m_bins] with `inputs` [C] naming
+    each channel's row (the bins past m_bins are not read); resp_tiles
+    [C, S] c64, tile_lo/slope/shifts [C] int32 (from build_tile_params); E
+    [S, olen] c64 (tiled_idft_matrix), or None for the FFT-IDFT form of
+    wideband slices (WFM's 9,600-bin composite, whose [S, olen] constant
+    would take hundreds of MB): E'[j, t] is periodic in j with period
+    n_bins, so the padded frame folds S -> n_bins (valid while S - n_bins
+    <= n_bins), rotates by n_bins//2 (natural -> FFT order) and goes through
+    one batched inverse FFT (cuFFT on the card); the engine calls this form
+    directly, on the card too.
     Returns [C, olen] complex64 baseband (before fine tuning).
     """
     T = _CTILE
@@ -207,16 +234,18 @@ def tiled_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.T
     m_bins = master_N // 2 + 1 if real_master else master_N
     t_idx = torch.arange(ntiles, dtype=torch.int64, device=F.device)[None, :]
     lo = tile_lo.to(torch.int64)[:, None]
+    Fm = F[..., :m_bins]
     if real_master:
-        pad = (-m_bins) % T
-        rows = torch.nn.functional.pad(F, (0, pad)).reshape(-1, T)
-        tidx = torch.clamp(lo + t_idx, 0, rows.shape[0] - 1)
+        # rows of a real master clamp inside [DC, Nyquist]; its last row is
+        # zero past m_bins
+        Fm = torch.nn.functional.pad(Fm, (0, (-m_bins) % T))
+        tidx = torch.clamp(lo + t_idx, 0, Fm.shape[-1] // T - 1)
     else:
         if m_bins % T:
             raise ValueError(f"complex master of {m_bins} bins is not whole {T}-bin tiles")
-        rows = F.reshape(-1, T)
         tidx = torch.remainder(lo + t_idx, m_bins // T)
-    cover = rows[tidx].reshape(C, S)
+    rows = Fm.reshape(Fm.shape[:-1] + (-1, T))
+    cover = _take(rows, tidx, inputs).reshape(C, S)
     x = cover * resp_tiles
     if E is None:
         n = n_bins
@@ -233,6 +262,91 @@ def tiled_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.T
     ph = torch.remainder(slope.to(torch.int64)[:, None] * t_abs, n_bins).to(torch.float32)
     ang = ph * float(np.float32(2.0 * np.pi / n_bins))
     return Y * torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+def _signed_bins(n_bins: int, device) -> torch.Tensor:
+    """Output bin index -> signed baseband frequency bin (FFT order), [1, n]."""
+    k = torch.arange(n_bins, dtype=torch.int64, device=device)
+    return torch.where(k < (n_bins + 1) // 2, k, k - n_bins)[None, :]
+
+
+def gather_bins(F: torch.Tensor, shifts: torch.Tensor, n_bins: int, real_master: bool,
+                master_N: int, inputs: torch.Tensor | None = None) -> torch.Tensor:
+    """Each channel's slice of master bins, before its response: the four
+    cases of filter.c:695-860. A real master's slice is zero outside
+    [0, N/2], and for a negative shift inverted and conjugated (high-side
+    LO); a complex master's wraps through DC and is zero past the master
+    Nyquist. F and inputs as in tiled_channelize.
+    Returns [C, n_bins] complex64 in FFT order."""
+    g = shifts.to(torch.int64)[:, None] + _signed_bins(n_bins, F.device)
+    if real_master:
+        m_bins = master_N // 2 + 1
+        inverted = (shifts < 0)[:, None]
+        mi = torch.where(inverted, -g, g)
+        valid = (mi >= 0) & (mi < m_bins)
+        vals = _take(F, torch.clamp(mi, 0, m_bins - 1), inputs)
+        vals = torch.where(inverted, vals.conj(), vals)
+    else:
+        valid = (g >= -(master_N // 2)) & (g <= (master_N - 1) // 2)
+        vals = _take(F, torch.remainder(g, master_N), inputs)
+    return torch.where(valid, vals, 0.0)
+
+
+def isb_unpack(fd: torch.Tensor) -> torch.Tensor:
+    """Independent sideband: LSB/USB of [C, n] FFT-order bins into I/Q
+    (filter.c:862-876): pos' = pos + conj(neg), neg' = neg - conj(pos),
+    DC = 0."""
+    n = fd.shape[-1]
+    rev = torch.flip(torch.roll(fd, -1, dims=-1), dims=[-1]).conj()  # bin -k for each k
+    k = torch.arange(n, device=fd.device)[None, :]
+    return torch.where((k >= 1) & (k < n // 2), fd + rev,
+                       torch.where(k > n // 2, fd - rev, torch.where(k == 0, 0.0, fd)))
+
+
+def finish_channelize(fd: torch.Tensor, olen: int, isb: bool = False) -> torch.Tensor:
+    """After the gather and the response: the optional ISB unpack, a batched
+    inverse FFT (cuFFT on the card), the overlap discarded.
+    Returns [C, olen] complex64."""
+    n = fd.shape[-1]
+    if isb:
+        fd = isb_unpack(fd)
+    return torch.fft.ifft(fd, dim=-1)[:, n - olen:]
+
+
+def channelize(F: torch.Tensor, responses: torch.Tensor, shifts: torch.Tensor, olen: int,
+               real_master: bool, master_N: int, isb: bool = False,
+               inputs: torch.Tensor | None = None) -> torch.Tensor:
+    """The per-element channelizer: gather_bins x responses [C, n_bins],
+    then finish_channelize. The engine's path for what the tiled form does
+    not cover (small or odd complex masters). Returns [C, olen] complex64
+    baseband (before fine tuning)."""
+    fd = gather_bins(F, shifts, responses.shape[-1], real_master, master_N, inputs) * responses
+    return finish_channelize(fd, olen, isb)
+
+
+def channelize_beam(F: torch.Tensor, responses: torch.Tensor, shifts: torch.Tensor, olen: int,
+                    master_N: int, alpha: torch.Tensor, beta: torch.Tensor,
+                    inputs: torch.Tensor | None = None) -> torch.Tensor:
+    """Dual-antenna beamforming channelizer (filter.c:723-742): two real
+    antennas ride the I and Q rails of one complex master (the Fobos
+    independent-input mode), and each output bin combines the master bin
+    and the conjugate of its mirror with per-channel complex weights,
+        out[k] = (alpha F[rp] + beta conj(F[-rp])) response[k];
+    DC and Nyquist carry the two antennas as their real and imaginary
+    parts. alpha/beta [C] complex64; F and inputs as in tiled_channelize.
+    Returns [C, olen] complex64."""
+    nb = responses.shape[-1]
+    g = shifts.to(torch.int64)[:, None] + _signed_bins(nb, F.device)
+    valid = (g >= -(master_N // 2)) & (g <= (master_N - 1) // 2)
+    rp = torch.remainder(g, master_N)
+    f_rp = _take(F, rp, inputs)
+    f_mir = _take(F, torch.remainder(master_N - rp, master_N), inputs)
+    a, b = alpha[:, None], beta[:, None]
+    vals = a * f_rp + b * f_mir.conj()
+    special = (rp == 0) | (rp == master_N // 2)
+    sval = a * f_rp.real + b * f_rp.imag
+    fd = torch.where(valid, torch.where(special, sval, vals), 0.0) * responses
+    return torch.fft.ifft(fd, dim=-1)[:, nb - olen:]
 
 
 def fine_tune(bb: torch.Tensor, acc_q32: torch.Tensor, inc_q32: torch.Tensor,

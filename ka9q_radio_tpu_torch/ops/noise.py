@@ -13,12 +13,17 @@ the key space counting `keys <= mid` per row.
 
 `gather_noise_bins` + `estimate_noise_keys` here are the plain PyTorch
 version of the CUDA kernel in ops/cuda_channelize.py; the engine calls the
-kernel's wrapper, which runs these for CPU tensors only.
+kernel's wrapper, which runs these for CPU tensors only. The window is
+tile-aligned where the master allows it and per-element on small or odd
+masters (noise_window_fits picks), and may read any row of a [B, ld]
+multi-input spectrum.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .filterbank import _take
 
 __all__ = ["NQ", "N_CUTOFF", "POWER_ALPHA", "MIN_NOISE_BINS", "noise_correction",
            "noise_window_fits", "gather_noise_bins", "estimate_noise_keys",
@@ -39,41 +44,49 @@ def noise_correction(q: float = NQ, cutoff: float = N_CUTOFF) -> float:
 
 
 def noise_window_fits(nbins: int, real_master: bool, master_N: int) -> bool:
-    """Whether the tile-aligned window placement applies to this master
-    (the per-element placement for small or odd masters is a later slice)."""
+    """Which window placement this master takes: True for the tile-aligned
+    one (the window `nbins` rounded up to whole 128-bin tiles fits the
+    master, and a complex master is whole tiles), False for the
+    per-element one of small or odd masters."""
     W = -(-nbins // _TILE) * _TILE
     m_bins = master_N // 2 + 1 if real_master else master_N
     return m_bins >= W and (real_master or m_bins % _TILE == 0)
 
 
 def gather_noise_bins(F: torch.Tensor, shifts: torch.Tensor, nbins: int,
-                      real_master: bool, master_N: int) -> torch.Tensor:
-    """Energies |F|^2 of the noise-estimation window of every channel.
+                      real_master: bool, master_N: int,
+                      inputs: torch.Tensor | None = None) -> torch.Tensor:
+    """Energies |F|^2 of the noise-estimation window of every channel,
+    placed as in radio.c:1845-1872: around |shift| clamped inside [DC,
+    Nyquist] for real masters; around the signed shift, clamped inside the
+    signed band and wrapped through DC, for complex masters.
 
-    The window is `nbins` rounded up to whole 128-bin tiles, placed as in
-    radio.c:1845-1872 on a 128-bin grid: around |shift| clamped inside
-    [DC, Nyquist] for real masters; around the signed shift, clamped inside
-    the signed band and wrapped through DC, for complex masters.
+    Where noise_window_fits, the window is `nbins` rounded up to whole
+    128-bin tiles (W), its start on the 128-bin grid. Otherwise (small or
+    odd masters) it is `nbins` bins long (W = nbins) at any start, each bin
+    clamped inside a real master and wrapped mod m_bins on a complex one.
+    F: [m_bins] complex64, or [B, ld >= m_bins] with `inputs` [C] naming
+    each channel's row (the window is placed inside the row).
     Returns [C, W] float32.
     """
-    if not noise_window_fits(nbins, real_master, master_N):
-        raise NotImplementedError(
-            "per-element noise windows (small or odd masters) are a later slice of the port")
     T = _TILE
-    W = -(-nbins // T) * T
     m_bins = master_N // 2 + 1 if real_master else master_N
+    tiled = noise_window_fits(nbins, real_master, master_N)
+    W = -(-nbins // T) * T if tiled else nbins
     # square before the gather, as a*a + b*b with no fused multiply-add:
     # the CUDA kernel rounds the same two products and sum
     E = F.real * F.real + F.imag * F.imag
     sh = shifts.to(torch.int64)
     k = torch.arange(W, dtype=torch.int64, device=F.device)[None, :]
     if real_master:
-        lo = torch.clamp(sh.abs() - W // 2, 0, m_bins - W)
-        start = torch.div(lo, T, rounding_mode="floor") * T
-        return E[start[:, None] + k]
-    lo = torch.clamp(sh - W // 2, -(m_bins // 2), (m_bins - 1) // 2 - (W - 1))
-    start = torch.div(lo, T, rounding_mode="floor") * T
-    return E[torch.remainder(start[:, None] + k, m_bins)]
+        lo = torch.clamp(sh.abs() - W // 2, 0, max(m_bins - W, 0))
+    else:
+        lo = torch.clamp(sh - W // 2, -(m_bins // 2), (m_bins - 1) // 2 - (W - 1))
+    if tiled:
+        lo = torch.div(lo, T, rounding_mode="floor") * T
+    idx = lo[:, None] + k
+    idx = torch.clamp(idx, 0, m_bins - 1) if real_master else torch.remainder(idx, m_bins)
+    return _take(E, idx, inputs)
 
 
 def _quantile_terms(nbins: int):

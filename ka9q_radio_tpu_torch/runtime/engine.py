@@ -20,8 +20,10 @@ host copy of `armed`), so no block reads a device value back to the host.
 The state tensors keep the same values as the JAX engine's.
 
 Per-block per-group pipeline (downconvert(), radio.c:1451-1562):
-  master FFT (torch.fft, cuFFT on the card)
-  -> tiled channelizer (CUDA kernel, ops/cuda_channelize.py)
+  master FFT (torch.fft, cuFFT on the card; B spectra for B inputs)
+  -> tiled channelizer (CUDA kernel, ops/cuda_channelize.py); the
+     per-element channelizer of small or odd complex masters, or the
+     beamforming one (a gather and cuFFT)
   -> N0 estimate on its cadence (CUDA kernel) + EMA smoothing
   -> fine-tune Q32 NCO + Renfors block phase adjustment
   -> optional filter2 cascade (a second overlap-save stage at the output
@@ -30,14 +32,16 @@ Per-block per-group pipeline (downconvert(), radio.c:1451-1562):
      I/Q), NBFM with CTCSS, WFM stereo with RDS, or narrowband spectrum; a
      wide spectrum group takes windowed FFTs of the raw block instead.
 
-This port runs one device and one input: every demodulator of the JAX
-package, squelch-gated egress compaction, and the daemon's table surgery
-(retune and set_edges write rows in place; adopt_host_params and
-migrate_state carry a rebuilt channel table's params and state), with
-adaptive spur notches on the master bins. Beamforming, multiple inputs and
-the per-element channelizers of small or odd masters are later slices and
-raise NotImplementedError naming their ROADMAP item (the daemon refuses
-mesh = yes, another later slice).
+This port runs on one device: every demodulator of the JAX package,
+squelch-gated egress compaction, and the daemon's table surgery (retune and
+set_edges write rows in place; adopt_host_params and migrate_state carry a
+rebuilt channel table's params and state), with adaptive spur notches on
+the master bins. One engine serves B same-geometry inputs (n_inputs=B):
+step takes a [B, L] block, the master FFT runs over the [B] axis and its
+spectra are padded to rows of whole 128-bin tiles (the kernels' row
+stride); each channel reads the input its ChannelSpec (or its group) names,
+so one batched group can span every stream. Dual-antenna beamforming runs
+on complex masters. (The daemon refuses mesh = yes, the multi-GPU slice.)
 """
 from __future__ import annotations
 
@@ -54,15 +58,18 @@ from ..ops.filterbank import (
     MasterConfig,
     block_phase_adjust_q32,
     build_tile_params,
+    channelize,
+    channelize_beam,
     compute_tuning,
     fine_tune,
+    isb_unpack,
     master_fft,
     master_init,
     tile_plan,
     tiled_channelize,
     tiled_idft_matrix,
 )
-from ..ops.noise import MIN_NOISE_BINS, POWER_ALPHA, noise_window_fits
+from ..ops.noise import MIN_NOISE_BINS, POWER_ALPHA
 from ..ops.osc import rev_to_q32
 from ..models.fm import fm_demod, fm_init
 from ..models.linear import linear_demod, linear_init
@@ -73,7 +80,7 @@ from ..models.wfm import AUDIO_SAMPRATE, wfm_constants, wfm_demod, wfm_design, w
 from ..utils.device import resolve_device, to_tensors
 from ..utils.units import dB_to_power, dB_to_voltage
 
-__all__ = ["ChannelSpec", "GroupSpec", "Engine", "DEFAULTS", "check_spec", "migrate_state"]
+__all__ = ["ChannelSpec", "GroupSpec", "Engine", "DEFAULTS", "migrate_state"]
 
 # Reference compiled defaults (modes.c:33-62)
 DEFAULTS = dict(
@@ -188,33 +195,29 @@ class GroupSpec:
             object.__setattr__(self, "snr_squelch", True)
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is a later slice of the port")
-
-
-def check_spec(spec: GroupSpec) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a group this
-    port does not carry yet (the daemon refuses such a command up front)."""
-    if spec.demod not in ("linear", "fm", "wfm", "spectrum"):
-        raise ValueError(f"group {spec.name}: unknown demod {spec.demod!r}")
-    if spec.beam:
-        raise _later("beamforming, ROADMAP item 15,")
-    if spec.input != 0 or any(c.input not in (None, 0) for c in spec.channels):
-        raise _later("multi-input, ROADMAP item 16,")
-
-
 class _Group:
     """Host-side geometry, host mirrors and device params of one GroupSpec."""
 
     def __init__(self, spec: GroupSpec, master: MasterConfig, samprate: float, blocktime: float,
-                 center: float, noise_every: int, device: torch.device):
+                 centers: Sequence[float], noise_every: int, device: torch.device):
         self.spec = spec
         self.master = master
         self.fs_in = samprate
         self.blocktime = blocktime
-        self.center = float(center)
         self.device = device
-        check_spec(spec)
+        if spec.demod not in ("linear", "fm", "wfm", "spectrum"):
+            raise ValueError(f"group {spec.name}: unknown demod {spec.demod!r}")
+        # per-channel front-end binding (ChannelSpec.input overrides the
+        # group's): a host mirror, and on an engine of several inputs the
+        # device tensor the gathers and kernels read
+        self.inputs = np.array(
+            [c.input if c.input is not None else spec.input for c in spec.channels], np.int32)
+        self.multi = len(centers) > 1  # an engine of several inputs (a centre each)
+        self.inputs_t = torch.as_tensor(self.inputs, device=device) if self.multi else None
+        # front-end centre: dial RF -> IF is freq - center (Frontend.frequency,
+        # radio.c:1479), each channel's from its own input
+        self.center = float(centers[int(spec.input)])
+        self.center_of = np.array([centers[i] for i in self.inputs], np.float64)
         r = int(spec.samprate)
         fs = int(round(samprate))
         N, L = master.N, master.L
@@ -247,6 +250,10 @@ class _Group:
         # spectrum algorithm crossover (spectrum.c, modes.c:69): coarse rbw
         # reads the raw A/D block, fine rbw the downconverted baseband
         self.spectrum_wide = spec.demod == "spectrum" and spec.bin_bw >= spec.crossover
+        if self.spectrum_wide and self.multi and np.any(self.inputs != spec.input):
+            raise ValueError(
+                f"group {spec.name}: wideband spectrum reads the raw "
+                "A/D block — its channels cannot span inputs")
         if self.spectrum_wide:
             self.wide_geo = wide_geometry(
                 self.fs_in, master.L, master.real, spec.bin_bw, spec.spectrum_window,
@@ -257,22 +264,21 @@ class _Group:
                 r, self.olen, spec.bin_bw, spec.bin_count, spec.spectrum_window,
                 spec.spectrum_window_param, spec.fft_avg, spec.spectrum_overlap)
             self.spectrum_consts = spectrum_constants(self.spectrum_geo, device)
-        # every other group takes the tiled channelizer: kernel A with the
+        # the tiled channelizer, where it is exact: kernel A with the
         # [S, olen] IDFT constant, or past _IDFT_BYTES of constant (WFM's
-        # 9,600-bin slice) the FFT-IDFT form on cuFFT; the per-element
-        # gathers of small or odd masters are a later slice
-        self.tiled = not self.spectrum_wide
+        # 9,600-bin slice) the FFT-IDFT form on cuFFT while its fold wraps
+        # once. Beamforming keeps its mirror-combining gather; complex
+        # masters that are not whole tiles, n_bins^2 >= 2^31 (the 32-bit
+        # ramp) and a fold that would wrap twice take the per-element
+        # channelizer (a gather and cuFFT)
+        self.tiled = (not spec.beam and not self.spectrum_wide
+                      and (master.real or N % _CTILE == 0) and self.n_bins * self.n_bins < 2**31)
         self.tile_E = self.tile_op = None
         if self.tiled:
             S = tile_plan(self.n_bins) * _CTILE
-            if not (master.real or N % _CTILE == 0) or self.n_bins * self.n_bins >= 2**31 \
-                    or (S * self.olen * 8 > _IDFT_BYTES and S - self.n_bins > self.n_bins):
-                raise _later("the per-element channelizers (small or odd masters), "
-                             "ROADMAP item 15,")
-            if not noise_window_fits(self.noise_bins, master.real, N):
-                raise _later("per-element noise windows (small or odd masters), "
-                             "ROADMAP item 15,")
-            if S * self.olen * 8 <= _IDFT_BYTES:
+            if S * self.olen * 8 > _IDFT_BYTES:
+                self.tiled = S - self.n_bins <= self.n_bins
+            else:
                 self.tile_E = torch.as_tensor(tiled_idft_matrix(self.n_bins, self.olen, S),
                                               device=device)
                 # the channelizer kernel's form of tile_E (split real-block GEMM operand)
@@ -286,7 +292,7 @@ class _Group:
         incs = np.zeros(self.C, np.int32)
         adjs = np.zeros(self.C, np.int32)
         for i, f in enumerate(freqs):
-            shift, rem, ok = compute_tuning(N, fs, float(f) - self.center)
+            shift, rem, ok = compute_tuning(N, fs, float(f) - self.center_of[i])
             if not ok:
                 raise ValueError(f"freq {f} outside front-end coverage")
             shifts[i] = shift
@@ -344,6 +350,11 @@ class _Group:
                 resp, shifts, self.master.real, self.master.N)
         if self.f2_N:
             p["responses2"] = np.stack([self._design_f2(c.low, c.high) for c in chans])
+        if spec.beam:
+            if self.master.real:
+                raise ValueError("beamforming needs a complex master")
+            p["beam_alpha"] = np.full(self.C, complex(spec.a_weight), np.complex64)
+            p["beam_beta"] = np.full(self.C, complex(spec.b_weight), np.complex64)
         g_sq_open = opt("squelch_open_db", "squelch_open_db")
         g_sq_close = opt("squelch_close_db", "squelch_close_db")
         r = spec.samprate
@@ -415,7 +426,7 @@ class _Group:
         arithmetic, then the channel's row written into the param tensors in
         place. Returns `params` itself."""
         N, L, fs = self.master.N, self.master.L, self.fs_in
-        shift, rem, ok = compute_tuning(N, fs, float(freq) - self.center)
+        shift, rem, ok = compute_tuning(N, fs, float(freq) - self.center_of[idx])
         if not ok:
             raise ValueError(f"freq {freq} outside front-end coverage")
         h = self.host
@@ -495,19 +506,28 @@ class _Group:
 
     # -- per-block device program -------------------------------------------
     def _channelize(self, params, F):
-        """Master spectrum F -> [C, olen] baseband (pre fine-tune): kernel A,
-        or for a slice past _IDFT_BYTES of IDFT constant the FFT-IDFT form."""
-        m = self.master
+        """Master spectrum F ([m_bins], or [B, ld] on an engine of B inputs)
+        -> [C, olen] baseband (pre fine-tune): kernel A, or for a slice past
+        _IDFT_BYTES of IDFT constant the FFT-IDFT form; the beamforming or
+        the per-element channelizer where the tiled form does not apply."""
+        m, inp = self.master, self.inputs_t
+        if self.spec.beam:
+            return channelize_beam(F, params["responses"], params["shifts"], self.olen, m.N,
+                                   params["beam_alpha"], params["beam_beta"], inputs=inp)
+        if not self.tiled:
+            return channelize(F, params["responses"], params["shifts"], self.olen, m.real, m.N,
+                              inputs=inp)
         args = (F, params["resp_tiles"], params["tile_lo"], params["slope"], params["shifts"],
                 self.tile_E, self.n_bins, self.olen, m.real, m.N)
         if self.tile_E is None:
-            return tiled_channelize(*args)
-        return cuda_channelize(*args, E_op=self.tile_op)
+            return tiled_channelize(*args, inputs=inp)
+        return cuda_channelize(*args, E_op=self.tile_op, inputs=inp)
 
     def _noise_est(self, params, F):
         """N0 estimate from the master bins around each channel."""
         m = self.master
-        return cuda_noise_est(F, params["shifts"], self.noise_bins, m.real, m.N, self.fs_in)[0]
+        return cuda_noise_est(F, params["shifts"], self.noise_bins, m.real, m.N, self.fs_in,
+                              inputs=self.inputs_t)[0]
 
     def step(self, state, params, F, block, jobnum: int, host: dict):
         """One block for this group. jobnum: host block counter (before this
@@ -565,12 +585,7 @@ class _Group:
             new_dc["tail2"] = buf[:, self.f2_L:]
             fd = torch.fft.fft(buf) * params["responses2"]
             if self.spec.isb:
-                # LSB/USB -> I/Q unpack (filter.c:862-876)
-                nb = self.f2_N
-                rev = torch.flip(torch.roll(fd, -1, dims=-1), dims=[-1]).conj()
-                k = torch.arange(nb, device=fd.device)[None, :]
-                fd = torch.where((k >= 1) & (k < nb // 2), fd + rev,
-                                 torch.where(k > nb // 2, fd - rev, torch.where(k == 0, 0.0, fd)))
+                fd = isb_unpack(fd)  # LSB/USB -> I/Q (filter.c:862-876)
             bb = torch.fft.ifft(fd)[:, self.f2_N - self.olen:]
         bb_power = (bb.real * bb.real + bb.imag * bb.imag).mean(-1)
         spec = self.spec
@@ -625,20 +640,25 @@ class Engine:
         state, out = eng.step(state, params, block)   # block: [L] samples
 
     device: None runs on CUDA and raises where there is none; "cpu" runs
-    the plain PyTorch versions of the kernels.
+    the plain PyTorch versions of the kernels. n_inputs=B serves B
+    same-geometry front-end streams: step then takes [B, L] blocks.
     """
 
     def __init__(self, samprate: float, groups: Sequence[GroupSpec], real: bool = True,
-                 blocktime: float = 0.02, overlap: int = 5, center: float = 0.0,
-                 noise_every: int = 4, spurs: Sequence[float] | None = None,
-                 fft: str = "auto", fft_precision: str = "high", use_matmul: bool = False,
+                 blocktime: float = 0.02, overlap: int = 5,
+                 center: float | Sequence[float] = 0.0, noise_every: int = 4,
+                 spurs: Sequence[float] | None = None, fft: str = "auto",
+                 fft_precision: str = "high", use_matmul: bool = False, n_inputs: int = 1,
                  device=None):
         """The JAX engine's keywords, where this port has their mechanism.
         fft "auto" or "monolithic" and fft_precision "high" or "exact" run
         cuFFT in FP32 (torch.fft); the MXU cascade and four-step split
         (fft "mxu"/"split"), its bf16 tier and the MXU matmul channelizer
         (use_matmul) are TPU mechanisms and raise. spurs: RF frequencies to
-        notch adaptively on the master bins (DC always with them)."""
+        notch adaptively on the master bins (DC always with them), on every
+        input. n_inputs: the number of front-end streams (the reference
+        needs one host per SDR); center: the front-end centre, one for all
+        inputs or one per input."""
         fft, fft_precision = str(fft).lower(), str(fft_precision).lower()
         if fft in ("mxu", "split"):
             raise ValueError(f"fft={fft!r} picks the TPU's matmul-cascade master FFT; the port's "
@@ -657,12 +677,30 @@ class Engine:
         self.master = MasterConfig.from_rate(samprate, blocktime, overlap, real)
         self.samprate = float(samprate)
         self.blocktime = blocktime
-        self.center = float(center)
+        self.n_inputs = int(n_inputs)
+        if self.n_inputs < 1:
+            raise ValueError(f"n_inputs={n_inputs}: need at least one input")
+        if np.ndim(center) == 0:
+            self.centers = [float(center)] * self.n_inputs
+        else:
+            self.centers = [float(c) for c in center]
+            if len(self.centers) != self.n_inputs:
+                raise ValueError(f"{len(self.centers)} centers for {self.n_inputs} inputs")
+        self.center = self.centers[0]
+        self.ld = -(-self.master.bins // _CTILE) * _CTILE  # master_step's row stride
         self.noise_every = max(1, int(noise_every))
         names = [g.name for g in groups]
         if len(set(names)) != len(names):
             raise ValueError("duplicate group names")
-        self.groups = {g.name: _Group(g, self.master, self.samprate, blocktime, self.center,
+        for g in groups:
+            if not 0 <= g.input < self.n_inputs:
+                raise ValueError(f"group {g.name}: input {g.input} outside the engine's "
+                                 f"{self.n_inputs} front-end stream(s)")
+            for c in g.channels:
+                if c.input is not None and not 0 <= c.input < self.n_inputs:
+                    raise ValueError(f"group {g.name}: channel input {c.input} outside "
+                                     f"{self.n_inputs} stream(s)")
+        self.groups = {g.name: _Group(g, self.master, self.samprate, blocktime, self.centers,
                                       self.noise_every, self.device)
                        for g in groups}
         # adaptive spur notches on master bins (radio.c:662-683,
@@ -687,14 +725,20 @@ class Engine:
         return [g.spec for g in self.groups.values()]
 
     def init_state(self):
+        """The carried state; an engine of B inputs carries [B, M-1] master
+        tails and [B, spurs] spur trackers."""
+        mst = master_init(self.master, device=self.device)
+        lead = (self.n_inputs,) if self.n_inputs > 1 else ()
+        mst["tail"] = mst["tail"].expand(lead + mst["tail"].shape).clone()
         st = {
-            "master": master_init(self.master, device=self.device),
+            "master": mst,
             "groups": {n: g.init_state() for n, g in self.groups.items()},
             "host": {"jobnum": 0,
                      "groups": {n: {"warmup": 2, "frames": 0} for n in self.groups}},
         }
         if self.spur_bins is not None:
-            st["spurs"] = torch.zeros(len(self.spur_bins), dtype=torch.complex64, device=self.device)
+            st["spurs"] = torch.zeros(lead + (len(self.spur_bins),), dtype=torch.complex64,
+                                      device=self.device)
         return st
 
     def init_params(self):
@@ -744,28 +788,43 @@ class Engine:
             g.params = to_tensors(g.host, self.device)
         return self.init_params()
 
+    def master_step(self, mstate, block: torch.Tensor):
+        """The master FFT of one block: (new master state, F). F is [bins],
+        or for B inputs [B, ld]: each row padded to whole 128-bin tiles (the
+        JAX package's padded tile layout), so that every row starts 16-byte
+        aligned for the kernels' loads."""
+        mstate, F = master_fft(self.master, mstate, block)
+        if self.n_inputs > 1:
+            F = torch.nn.functional.pad(F, (0, self.ld - self.master.bins))
+        return mstate, F
+
     def step(self, state, params, block: torch.Tensor):
-        """One block: [L] input samples -> per-group audio + status info."""
+        """One block: [L] input samples ([B, L] for an engine of B inputs)
+        -> per-group audio + status info."""
         host = state["host"]
         jobnum = host["jobnum"]
-        mstate, F = master_fft(self.master, state["master"], block)
+        multi = self.n_inputs > 1
+        mstate, F = self.master_step(state["master"], block)
         spur_state = None
         if self.spur_bins is not None:
-            # F is this block's own tensor: notch it in place
-            vals = F.index_select(0, self._spur_idx)
+            # F is this block's own tensor: notch it in place, every input
+            vals = F.index_select(-1, self._spur_idx)
             spur_state = state["spurs"] + float(np.float32(0.01)) * (vals - state["spurs"])
-            F.index_add_(0, self._spur_idx, -spur_state)  # tracker ~10 s (filter.c:447)
+            F.index_add_(-1, self._spur_idx, -spur_state)  # tracker ~10 s (filter.c:447)
         new_groups, outputs, host_groups = {}, {}, {}
         for name, g in self.groups.items():
+            # the whole F goes in; a wide spectrum reads its own input's block
+            blk = block[g.spec.input] if multi else block
             gs, audio, info, host_groups[name] = g.step(
-                state["groups"][name], params[name], F, block, jobnum, host["groups"][name])
+                state["groups"][name], params[name], F, blk, jobnum, host["groups"][name])
             new_groups[name] = gs
             outputs[name] = {"audio": audio, "info": info}
-        # front-end metrics (frontend->if_power smoothing, rx888.c contract)
+        # front-end metrics (frontend->if_power smoothing, rx888.c contract):
+        # [B] per-input powers, [1] for one input
         p_in = block.real * block.real
         if not self.master.real:
             p_in = p_in + block.imag * block.imag
-        outputs["_frontend"] = {"if_power": p_in.mean()[None]}
+        outputs["_frontend"] = {"if_power": p_in.mean(-1).reshape(-1)}
         new_state = {"master": mstate, "groups": new_groups,
                      "host": {"jobnum": jobnum + 1, "groups": host_groups}}
         if spur_state is not None:

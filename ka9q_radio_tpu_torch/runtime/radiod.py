@@ -7,7 +7,8 @@ host side: one process owns the engine on the card; per 20 ms block it
      response; settable keys -> params rows written in place, nothing
      rebuilt, mirroring decode_radio_commands radio_status.c:133-702),
   2. pulls one input block from the front end (sig_gen on the card, a file
-     or RTP reader, or an external feeder) and copies it to the card,
+     or RTP reader, or an external feeder; one [B, L] block from the B
+     front ends of several `[hardware]` sections) and copies it to the card,
   3. runs the engine step (D steps with `time-shards = D`), then copies the
      audio and the per-block control leaves back to pinned host memory with
      one synchronisation,
@@ -23,9 +24,8 @@ runs it flat out, a live deployment paces on the source.
 A device error is never turned into a dropped block: any exception from the
 engine step, the device->host copy or a table rebuild propagates. Block
 drops count front-end read gaps only. Every demodulator of the JAX package
-runs; a group the port does not carry yet (beamforming, several inputs)
-raises at startup, and a control command asking for one is refused (one
-line on stderr, the channel unchanged).
+runs, beamforming groups and several `[hardware]` inputs included; `mesh =
+yes` (the multi-GPU slice) raises at startup.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from ..net.multicast import (resolve_dest, output_socket, output_socket_unconnec
                              listen_socket, DEFAULT_RTP_PORT, DEFAULT_STAT_PORT)
 from ..utils.units import power_to_dB, dB_to_power, dB_to_voltage, voltage_to_dB
 from ..utils.device import resolve_device
-from .engine import Engine, check_spec, migrate_state
+from .engine import Engine, migrate_state
 from .source import siggen_init, siggen_block
 
 __all__ = ["Radiod", "DEMOD_TYPE_CODES"]
@@ -184,8 +184,9 @@ class _LazyGroupInfo:
 
 
 class Radiod:
-    """The daemon on one device and one input. device None means CUDA (and
-    raises where there is none); the tests pass device="cpu"."""
+    """The daemon on one device, over one or several front ends. device None
+    means CUDA (and raises where there is none); the tests pass
+    device="cpu"."""
 
     def __init__(
         self,
@@ -209,10 +210,6 @@ class Radiod:
                 "mesh = yes (the sharded engine) is a later slice of the port, ROADMAP item 17 "
                 "(multi-GPU)")
         self._n_inputs = int(getattr(cfg, "n_inputs", 1))
-        if self._n_inputs > 1:
-            raise NotImplementedError(
-                "more than one [hardware] input is a later slice of the port, ROADMAP item 16 "
-                "(multi-input)")
         self._noise_every = int(cfg.options.get("noise-every", 4))
         # [global] time-shards = D: D consecutive blocks per dispatch on the
         # one device, with ONE device->host copy for all D (the same outputs
@@ -231,29 +228,15 @@ class Radiod:
         self.params = self.engine.init_params()
         self.source_state = None
         self.frontend = None
-        if isinstance(cfg.source, dict):
-            from .frontends import FileSource, RtpSource
-
-            d = dict(cfg.source)
-            kind = d.pop("kind")
-            self.frontend = FileSource(**d) if kind == "file" else RtpSource(**d)
+        self.frontends = None  # several inputs: one host feeder a stream
+        if self._n_inputs > 1:
+            self._init_multi_sources(cfg)
+        elif isinstance(cfg.source, dict):
+            self.frontend = self._feeder(cfg.source)
         elif cfg.source is not None:
             src = cfg.source
             self.source_state = siggen_init(src, device=self.device)
-            L = self.engine.L
-            if self._time_shards:
-                D = self._time_shards
-
-                def _gen(st):  # [D, L] consecutive blocks
-                    blocks = []
-                    for _ in range(D):
-                        st, blk = siggen_block(src, st, L)
-                        blocks.append(blk)
-                    return st, torch.stack(blocks)
-
-                self._siggen = _gen
-            else:
-                self._siggen = lambda st: siggen_block(src, st, L)
+            self._init_siggen(lambda st: siggen_block(src, st, self.engine.L))
         self.registry = PayloadRegistry()
         self.update_every = int(cfg.options.get("update", 25))  # blocks (modes.c:56)
         self.blocks = 0
@@ -426,6 +409,63 @@ class Radiod:
         # creates channels in ms, radio_status.c:92-105)
         for pname in str(cfg.options.get("prealloc", "")).split():
             self._prealloc(pname.lower())
+
+    @staticmethod
+    def _feeder(d: dict):
+        """The host front end of a file or RTP `[hardware]` section."""
+        from .frontends import FileSource, RtpSource
+
+        d = dict(d)
+        kind = d.pop("kind")
+        return FileSource(**d) if kind == "file" else RtpSource(**d)
+
+    def _init_siggen(self, gen1: Callable) -> None:
+        """self._siggen from gen1 (state -> (state, one block)): one block a
+        dispatch, or with `time-shards = D` D consecutive ones stacked."""
+        if not self._time_shards:
+            self._siggen = gen1
+            return
+        D = self._time_shards
+
+        def _gen(st):
+            blocks = []
+            for _ in range(D):
+                st, blk = gen1(st)
+                blocks.append(blk)
+            return st, torch.stack(blocks)
+
+        self._siggen = _gen
+
+    def _init_multi_sources(self, cfg) -> None:
+        """Front ends of several `[hardware]` sections (the JAX daemon's
+        _init_multi_sources): sig_gen sections stack into [B, L] blocks (a
+        [D, B, L] dispatch with time-shards); file and RTP sections read per
+        stream on the host, and the first one takes the front-end commands;
+        sections of neither kind leave the blocks to an external feeder
+        (step_block(block=[B, L])). sig_gen and host feeders do not mix."""
+        srcs = list(cfg.sources)
+        if all(s is not None and not isinstance(s, dict) for s in srcs):
+            L = self.engine.L
+            self.source_state = [siggen_init(s, device=self.device) for s in srcs]
+
+            def gen1(states):
+                outs = [siggen_block(s, st, L) for s, st in zip(srcs, states)]
+                return [o[0] for o in outs], torch.stack([o[1] for o in outs])
+
+            self._init_siggen(gen1)
+            return
+        if any(s is not None and not isinstance(s, dict) for s in srcs):
+            raise NotImplementedError(
+                "multi-front-end configs cannot mix sig_gen with host "
+                "feeders (file/rtp); use one kind per daemon")
+        if all(s is None for s in srcs):
+            return  # an external feeder drives step_block(block=[B, L])
+        if any(s is None for s in srcs):
+            raise NotImplementedError(
+                "multi-front-end: either every hardware section has a "
+                "feeder or an external caller supplies [B, L] blocks")
+        self.frontends = [self._feeder(s) for s in srcs]
+        self.frontend = self.frontends[0]  # RF_GAIN etc. commands act on the first
 
     def _mk_step(self, eng) -> Any:
         """The per-dispatch function: the engine's step, or with
@@ -966,18 +1006,6 @@ class Radiod:
         base = math.lcm(fs // math.gcd(fs, N), fs // math.gcd(fs, L))
         return max(base, int(round(r / base)) * base)
 
-    @staticmethod
-    def _refused(ssrc: int, template) -> bool:
-        """True, after one line on stderr, when `template` needs a part of
-        the engine the port does not carry yet (check_spec names its ROADMAP
-        item): the command is refused and the daemon goes on."""
-        try:
-            check_spec(template)
-        except NotImplementedError as e:
-            print(f"ssrc {ssrc}: command refused: {e}", file=sys.stderr, flush=True)
-            return True
-        return False
-
     def create_dynamic_channel(self, ssrc: int, fields: dict) -> "_Chan | None":
         """Unknown SSRC command -> create the channel (radio_status.c:92-105).
 
@@ -996,8 +1024,6 @@ class Radiod:
             return None
         freq = float(fields.get(T.RADIO_FREQUENCY, 0.0) or 0.0)
         template = _build_group(f"dyn-{preset}", dict(presets[preset]), [(freq, 0.0)])
-        if self._refused(ssrc, template):
-            return None
         # reuse any group already built for this class (static ones
         # included — the reference has one flat channel table, radio.c)
         gname = self._group_for_spec(template, default=template.name)
@@ -1063,7 +1089,8 @@ class Radiod:
         return dict(
             samprate=self.cfg.samprate, real=self.cfg.real,
             blocktime=self.cfg.blocktime, overlap=self.cfg.overlap,
-            spurs=self._spurs, center=getattr(self.cfg, "center", 0.0),
+            spurs=self._spurs, n_inputs=self._n_inputs,
+            center=(self.cfg.centers if self._n_inputs > 1 else getattr(self.cfg, "center", 0.0)),
             fft=str(self.cfg.options.get("fft", "auto")).lower(),
             fft_precision=str(self.cfg.options.get("fft-precision", "high")).lower(),
             use_matmul=_yes(self.cfg.options.get("matmul", "n")),
@@ -1258,7 +1285,6 @@ class Radiod:
         eng = self.engine
         spec0 = eng.groups[ch.group].spec
         template = spec0
-        old_preset, old_betas = ch.preset, (ch.kaiser_beta, ch.filter2_beta)
         carry = True
         low = high = None
         refilter = False
@@ -1349,11 +1375,6 @@ class Radiod:
         if repl or template is not spec0:
             if repl:
                 template = dataclasses.replace(template, **repl)
-            if self._refused(ch.ssrc, template):
-                if template is not spec0:
-                    ch.preset = old_preset
-                    ch.kaiser_beta, ch.filter2_beta = old_betas
-                return
             self._move_channel(ch, template, carry=carry, low=low, high=high)
             refilter = False  # move re-applies edges/betas
             eng = self.engine  # a move may have rebuilt the engine
@@ -1812,10 +1833,10 @@ class Radiod:
         import json
 
         arrs = {k: v.cpu().numpy() for k, v in self._flat_state(self.state).items()}
-        if self.source_state is not None:
-            arrs["__src_phase__"] = self.source_state["phase"].cpu().numpy()
-            arrs["__src_tone__"] = self.source_state["tone_phase"].cpu().numpy()
-            arrs["__src_gen__"] = self.source_state["gen"].get_state().numpy()
+        for sfx, st in self._src_states():
+            arrs[f"__src_phase{sfx}__"] = st["phase"].cpu().numpy()
+            arrs[f"__src_tone{sfx}__"] = st["tone_phase"].cpu().numpy()
+            arrs[f"__src_gen{sfx}__"] = st["gen"].get_state().numpy()
         meta = {
             "blocks": self.blocks,
             "host": self.state["host"],
@@ -1824,6 +1845,14 @@ class Radiod:
                       for ssrc, ch in self.chans.items()},
         }
         np.savez_compressed(path, __meta__=json.dumps(meta), **arrs)
+
+    def _src_states(self) -> list:
+        """[(key suffix, generator state)]: "" for the one sig_gen, "1", "2",
+        ... after it for those of several inputs."""
+        if self.source_state is None:
+            return []
+        sts = self.source_state if isinstance(self.source_state, list) else [self.source_state]
+        return [(str(i) if i else "", st) for i, st in enumerate(sts)]
 
     def load_checkpoint(self, path: str) -> bool:
         """Restore a snapshot taken with the same configuration. Returns
@@ -1848,15 +1877,17 @@ class Radiod:
         self.state["host"] = {"jobnum": int(host["jobnum"]),
                               "groups": {n: {k: int(v) for k, v in h.items()}
                                          for n, h in host["groups"].items()}}
-        if self.source_state is not None and "__src_phase__" in z:
-            dev = self.device
-            gen = self.source_state["gen"]
-            gen.set_state(torch.from_numpy(z["__src_gen__"]))
-            self.source_state = {
-                "phase": torch.from_numpy(z["__src_phase__"]).to(dev),
-                "tone_phase": torch.from_numpy(z["__src_tone__"]).to(dev),
-                "gen": gen,
-            }
+        srcs = self._src_states()
+        if srcs and all(f"__src_phase{sfx}__" in z for sfx, _ in srcs):
+            restored = []
+            for sfx, st in srcs:
+                st["gen"].set_state(torch.from_numpy(z[f"__src_gen{sfx}__"]))
+                restored.append({
+                    "phase": torch.from_numpy(z[f"__src_phase{sfx}__"]).to(self.device),
+                    "tone_phase": torch.from_numpy(z[f"__src_tone{sfx}__"]).to(self.device),
+                    "gen": st["gen"],
+                })
+            self.source_state = restored if isinstance(self.source_state, list) else restored[0]
         self.blocks = int(meta.get("blocks", 0))
         for ssrc_s, m in meta.get("chans", {}).items():
             ch = self.chans.get(int(ssrc_s))
@@ -1947,12 +1978,16 @@ class Radiod:
         return host
 
     def _read_frontend(self, n: int) -> np.ndarray:
-        """n consecutive blocks (n = 1: one [L] block) from the host front
-        end; a block the reader could not fill counts as a drop."""
-        fe, L = self.frontend, self.engine.L
-        before = getattr(fe, "timeouts", 0)
-        blocks = [np.asarray(fe.read_block(L)) for _ in range(n)]
-        self.block_drops += min(getattr(fe, "timeouts", 0) - before, n)
+        """n consecutive blocks (n = 1: one [L] block, or [B, L] from the B
+        feeders of several inputs) from the host front ends; a block that a
+        reader could not fill counts as a drop."""
+        fes, L = self.frontends or [self.frontend], self.engine.L
+        before = [getattr(fe, "timeouts", 0) for fe in fes]
+        blocks = [np.stack([np.asarray(fe.read_block(L)) for fe in fes]) for _ in range(n)]
+        gaps = max(getattr(fe, "timeouts", 0) - b for fe, b in zip(fes, before))
+        self.block_drops += min(gaps, n)
+        if self.frontends is None:
+            blocks = [b[0] for b in blocks]
         return blocks[0] if n == 1 else np.stack(blocks)
 
     def _to_device(self, block) -> torch.Tensor:

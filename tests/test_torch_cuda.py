@@ -76,7 +76,7 @@ def test_channelize_kernel_geometries(cuda, real_master, n_bins, olen, C):
     """A frame more than twice the slice (S = 256 > 2 n: the fold adds three
     terms), an odd n, C = 257 (no multiple of any row tile), slices wide
     enough that a CTA holds 32 and 16 channels, and slices too wide for a
-    whole 16-row X tile (n > 1296: the kernel takes it in two K segments),
+    whole 16-row X tile (n > 1280: the kernel takes it in two K segments),
     up to about the widest the engine puts on this path; two launches give
     the same bits."""
     arrays, geo = _ladder(real_master, C=C, seed=n_bins, n_bins=n_bins, olen=olen)
@@ -373,3 +373,117 @@ def test_every_demod_on_card_matches_cpu(cuda):
                 assert float((a_g - a_c).abs().max()) <= tol * float(a_c.abs().max()), (b, name)
     assert tcc.launches["pll_scan"] == 6 and tcc.launches["goertzel"] == 6
     assert tcc.launches["channelize"] == 6 * (len(ec.groups) - 1)  # WFM: FFT-IDFT on cuFFT
+
+
+def _multi_ladder(real_master: bool, B: int = 3, C: int = 96, seed: int = 15):
+    """B spectra in the engine's padded layout ([B, ld], ld whole 128-bin
+    tiles: an odd real master's rows, 32,769 bins, would otherwise start 8
+    bytes off on every odd input), tile params of C channels over all of
+    them, slices clamped at DC and Nyquist or wrapped through DC."""
+    rng = np.random.default_rng(seed)
+    master_N, n_bins, olen = 65_536, 300, 240
+    m_bins = master_N // 2 + 1 if real_master else master_N
+    ld = -(-m_bins // 128) * 128
+    r = design_bandpass_response(n_bins, olen, 50 / 12e3, 3e3 / 12e3, 11.0, real_master, master_N)
+    resp = (r[None, :] * np.exp(1j * rng.uniform(0, 2 * np.pi, (C, 1)))).astype(np.complex64)
+    lim = m_bins - 1 if real_master else master_N // 2
+    shifts = rng.integers(-lim, lim, C).astype(np.int32)
+    shifts[:4] = [0, 5, lim - 3, -lim + 2]
+    inputs = (np.arange(C) % B).astype(np.int32)
+    F = np.zeros((B, ld), np.complex64)
+    F[:, :m_bins] = rng.standard_normal((B, m_bins)) + 1j * rng.standard_normal((B, m_bins))
+    F[:, m_bins:] = 1e3  # the pad: no kernel may read it
+    rt, tl, sl = tfb.build_tile_params(resp, shifts, real_master, master_N)
+    E = tfb.tiled_idft_matrix(n_bins, olen, rt.shape[-1])
+    return (F, rt, tl, sl, shifts, E), (n_bins, olen, real_master, master_N), inputs
+
+
+@pytest.mark.parametrize("real_master", [True, False])
+def test_kernels_with_inputs_match_plain(cuda, real_master):
+    """Kernels A and B with per-channel inputs on three padded rows (an odd
+    real master, and a complex one): A within 3e-5 of its peak, B's keys
+    exact and N0 within rtol 2e-5 against their plain versions; the rows
+    [B, m_bins] of an odd master are refused (their odd rows are not
+    16-byte aligned)."""
+    arrays, geo, inputs = _multi_ladder(real_master)
+    args = [torch.as_tensor(a, device=cuda) for a in arrays]
+    inp = torch.as_tensor(inputs, device=cuda)
+    op = tcc.channelize_operand(args[5], geo[0], geo[1])
+    got = tcc.cuda_channelize(*args, *geo, E_op=op, inputs=inp)
+    want = tfb.tiled_channelize(*args, *geo, inputs=inp)
+    F, shifts, master_N = args[0], args[4], geo[3]
+    n0_k, keys_k = tcc.cuda_noise_est(F, shifts, 1000, real_master, master_N, 1e6, inputs=inp)
+    m_bins = master_N // 2 + 1 if real_master else master_N
+    n0_t, keys_t = tnz.estimate_noise_keys(
+        tnz.gather_noise_bins(F, shifts, 1000, real_master, master_N, inp), m_bins, 1e6)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) < 3e-5 * float(want.abs().max())
+    assert torch.equal(keys_k, keys_t)
+    torch.testing.assert_close(n0_k, n0_t, rtol=2e-5, atol=0)
+    if real_master:
+        with pytest.raises(ValueError, match="even"):
+            tcc.cuda_noise_est(F[:, :m_bins].contiguous(), shifts, 1000, True, master_N, 1e6,
+                               inputs=inp)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("real_master,master_N,nbins", [
+    (False, 60_000, 1000), (False, 60_000, 1024), (False, 60_000, 700), (False, 4_800, 1000),
+    (False, 300, 1000), (True, 1_800, 1000), (True, 1_200, 700)])
+def test_noise_kernel_per_element_windows(cuda, real_master, master_N, nbins, multi):
+    """Kernel B on per-element windows (small or odd masters): starts off
+    the 128-bin grid, lengths that are not whole tiles (the lanes past them
+    masked), windows wrapped through DC and longer than the master, one
+    spectrum or three padded rows: keys exact, N0 within rtol 2e-5."""
+    rng = np.random.default_rng(master_N + nbins + multi)
+    B = 3 if multi else 1
+    m_bins = master_N // 2 + 1 if real_master else master_N
+    ld = -(-m_bins // 128) * 128
+    F = np.full((B, ld), np.complex64(1e3))
+    F[:, :m_bins] = ((rng.standard_normal((B, m_bins)) + 1j * rng.standard_normal((B, m_bins)))
+                     * rng.uniform(0.1, 10.0, (B, m_bins)))
+    lim = m_bins - 1 if real_master else master_N // 2
+    shifts = np.concatenate([np.linspace(-lim, lim, 61), [0, 1, -1, 7, 65]]).astype(np.int32)
+    Fd = torch.as_tensor(F if multi else F[0, :m_bins], device=cuda)
+    sh = torch.as_tensor(shifts, device=cuda)
+    inp = torch.as_tensor((np.arange(shifts.size) % B).astype(np.int32), device=cuda) if multi else None
+    assert not tnz.noise_window_fits(nbins, real_master, master_N)
+    n = tcc.launches["noise_est"]
+    n0_k, keys_k = tcc.cuda_noise_est(Fd, sh, nbins, real_master, master_N, 2.4e6, inputs=inp)
+    n0_t, keys_t = tnz.estimate_noise_keys(
+        tnz.gather_noise_bins(Fd, sh, nbins, real_master, master_N, inp), m_bins, 2.4e6)
+    torch.cuda.synchronize()
+    assert tcc.launches["noise_est"] == n + 1
+    assert torch.equal(keys_k, keys_t)
+    torch.testing.assert_close(n0_k, n0_t, rtol=2e-5, atol=0)
+
+
+def test_two_input_daemon_on_cuda_matches_cpu(cuda):
+    """The two-sig_gen daemon of tests/test_torch_multife.py on the card and
+    on the CPU, the same [2, L] numpy blocks: RTP headers equal and samples
+    within 1 LSB, and both kernels launched with their inputs."""
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+    from torch_scenes import TWO_FE, two_fe_blocks
+
+    conf = TWO_FE.format(opts="")
+    rc = Radiod(load_config(conf), use_network=False, device="cuda")
+    rh = Radiod(load_config(conf), use_network=False, device="cpu")
+    tcc.reset_launches()
+    for x in two_fe_blocks(12, rc.engine.L, 5):
+        rc.step_block(block=x)
+        rh.step_block(block=x)
+    assert tcc.launches["channelize"] == 12 * 3 and tcc.launches["noise_est"] > 0
+    assert [k for k, _ in rc._sent] == [k for k, _ in rh._sent]
+    assert any(k == "data" for k, _ in rc._sent)
+    for (kind, a), (_, b) in zip(rc._sent, rh._sent):
+        if kind != "data":
+            continue
+        ha, pa = RtpHeader.unpack(a)
+        hb, pb = RtpHeader.unpack(b)
+        assert (ha.ssrc, ha.seq, ha.timestamp, ha.type, ha.marker) == \
+            (hb.ssrc, hb.seq, hb.timestamp, hb.type, hb.marker)
+        d = np.frombuffer(pa, ">i2").astype(np.int32) - np.frombuffer(pb, ">i2").astype(np.int32)
+        assert np.abs(d).max(initial=0) <= 1
+    np.testing.assert_allclose(rc.if_power_in, rh.if_power_in, rtol=1e-5)

@@ -14,7 +14,9 @@ import torch
 import ka9q_radio_tpu.runtime as jrt
 import ka9q_radio_tpu_torch.runtime as trt
 from ka9q_radio_tpu.runtime.engine import migrate_state as jmigrate
-from test_torch_engine import FREQS, FS, _assert_same_tree, _block, _groups, _tree_np
+from test_torch_engine import FREQS, FS, _block, _groups
+from torch_parity import assert_same_tree as _assert_same_tree
+from torch_parity import tree_np as _tree_np
 
 torch.set_num_threads(2)
 

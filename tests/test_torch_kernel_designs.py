@@ -262,3 +262,79 @@ def test_kernel_b_sorted_count(n):
         assert a == sorted(keys)
         for v in (-1, 0, int(rng.integers(0, 41)), int(np.median(keys)), 2**31 - 2):
             assert count_window(a, v) == sum(k <= v for k in keys)
+
+
+def noise_window_mirror(Fp: np.ndarray, inputs: np.ndarray, shifts: np.ndarray, nbins: int,
+                        real_master: bool, master_N: int):
+    """Kernel B's window load, in numpy, with the kernel's own arithmetic
+    (a tile-aligned window wrapped a 64-bin load at a time, a per-element
+    one's first bin wrapped once and each bin by subtraction): each warp's
+    key slots ([C, Wp], Wp = the window rounded up to 128, in load order:
+    load i, lane, pair element) with kIntMax in the slots past the window,
+    and the bin offsets (from Fp's start) of its 16-byte loads on
+    tile-aligned windows. Fp is the engine's [B, ld] spectra."""
+    m_bins = master_N // 2 + 1 if real_master else master_N
+    tiled = tnz.noise_window_fits(nbins, real_master, master_N)
+    W = -(-nbins // 128) * 128 if tiled else nbins
+    Wp = -(-W // 128) * 128
+    ld = Fp.shape[1]
+    energy = (Fp.real * Fp.real + Fp.imag * Fp.imag).astype(np.float32).view(np.int32)
+    slots = np.full((len(shifts), Wp), 2**31 - 1, np.int64)
+    wide = []
+    for c, sh in enumerate(shifts.astype(np.int64)):
+        if real_master:
+            start = min(max(abs(sh) - W // 2, 0), max(m_bins - W, 0))
+        else:
+            start = min(max(sh - W // 2, -(m_bins // 2)), (m_bins - 1) // 2 - (W - 1))
+        row = int(inputs[c])
+        if tiled:
+            start = start // 128 * 128
+            for i in range(Wp // 64):
+                b = start + 64 * i if real_master else (start + 64 * i) % m_bins
+                for lane in range(32):
+                    wide.append(row * ld + b + 2 * lane)
+                    slots[c, 64 * i + 2 * lane: 64 * i + 2 * lane + 2] = \
+                        energy[row, b + 2 * lane: b + 2 * lane + 2]
+            continue
+        b0 = start if real_master else start % m_bins  # wrapped once, as the kernel does
+        for k in range(W):
+            b = b0 + k
+            if real_master:
+                b = min(b, m_bins - 1)
+            while b >= m_bins:
+                b -= m_bins
+            slots[c, k] = energy[row, b]
+    return slots, np.asarray(wide, np.int64), W
+
+
+@pytest.mark.parametrize("real_master,master_N,nbins", [
+    (True, 65_536, 1024), (False, 65_536, 1000), (False, 60_000, 1000), (False, 4_800, 1000),
+    (True, 1_800, 1000), (False, 300, 700)])
+def test_kernel_b_window_placement(real_master, master_N, nbins):
+    """Kernel B's window placement and masking against gather_noise_bins on
+    three inputs' padded rows: the unmasked slots hold exactly the window's
+    keys, the masked ones (past a per-element window's nbins) hold kIntMax,
+    the search over the slots equals np.partition of the window, and every
+    16-byte load of a tile-aligned window starts on an even bin (rows are an
+    even ld apart; with rows m_bins = 32,769 apart, as an unpadded real
+    master's, every odd row would be misaligned)."""
+    rng = np.random.default_rng(master_N % 997 + nbins)
+    B, C = 3, 20
+    m_bins = master_N // 2 + 1 if real_master else master_N
+    ld = -(-m_bins // 128) * 128
+    Fp = (rng.standard_normal((B, ld)) + 1j * rng.standard_normal((B, ld))).astype(np.complex64)
+    lim = m_bins - 1 if real_master else master_N // 2
+    shifts = rng.integers(-lim, lim, C).astype(np.int32)
+    shifts[:4] = [0, lim - 1, -lim + 1, 3]
+    inputs = (np.arange(C) % B).astype(np.int32)
+    slots, wide, W = noise_window_mirror(Fp, inputs, shifts, nbins, real_master, master_N)
+    want = tnz.gather_noise_bins(torch.from_numpy(Fp), torch.from_numpy(shifts), nbins,
+                                 real_master, master_N, torch.from_numpy(inputs)).numpy()
+    assert want.shape == (C, W)
+    np.testing.assert_array_equal(np.sort(slots, -1)[:, :W], np.sort(want.view(np.int32), -1))
+    assert (slots[:, W:] == 2**31 - 1).all() and slots.shape[1] % 128 == 0
+    i = int(np.floor(tnz.NQ * (W - 1)))
+    got, _ = select_mirror(slots, i)
+    np.testing.assert_array_equal(
+        got, np.partition(want.view(np.int32), [i, i + 1], axis=-1)[:, [i, i + 1]])
+    assert (wide % 2 == 0).all()

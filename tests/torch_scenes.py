@@ -60,3 +60,122 @@ def dsb_integral(t):
     return sum(sgn * (np.sin(2 * np.pi * (f - g) * t) / (4 * np.pi * (f - g))
                       - np.sin(2 * np.pi * (f + g) * t) / (4 * np.pi * (f + g)))
                for f, sgn in ((700.0, 1.0), (1100.0, -1.0)))
+
+
+# complex masters that are not whole 128-bin tiles: an RTL-SDR at 2.4 Msps
+# (N 60,000) and a Funcube Pro+ at 192 ksps (N 4,800)
+ODD_RATES = (2_400_000, 192_000)
+
+
+def odd_master_groups(rt, fs: int):
+    """NBFM and USB channels at 2.4 Msps, USB and I/Q at 192 ksps: each
+    group takes the per-element channelizer and per-element noise windows."""
+    ch = rt.ChannelSpec
+    if fs == 2_400_000:
+        return [rt.GroupSpec(name="nbfm", demod="fm", samprate=24_000, channels=tuple(
+                    ch(freq=f, low=-8000, high=8000) for f in (-1.05e6, -300e3, 250e3, 1.07e6))),
+                rt.GroupSpec(name="usb", demod="linear", samprate=12_000, channels=(
+                    ch(freq=600e3, low=50, high=3000), ch(freq=-900e3, low=50, high=3000)))]
+    return [rt.GroupSpec(name="usb", demod="linear", samprate=12_000, channels=(
+                ch(freq=30e3, low=50, high=3000), ch(freq=-60e3, low=50, high=3000),
+                ch(freq=90e3, low=50, high=3000))),
+            rt.GroupSpec(name="iq", demod="iq", samprate=12_000, channels=(
+                ch(freq=-20e3, low=-5000, high=5000),))]
+
+
+def odd_master_block(b: int, L: int, fs: int, rng) -> np.ndarray:
+    """At 2.4 Msps 1 kHz FM at 2.5 kHz deviation on the -300 kHz channel and
+    a tone 700 Hz above the 600 kHz dial; at 192 ksps tones 700 Hz above the
+    30 kHz dial and 1 kHz above -20 kHz; over noise."""
+    t = np.arange(b * L, (b + 1) * L) / fs
+    x = 1e-3 * (rng.standard_normal(L) + 1j * rng.standard_normal(L))
+    if fs == 2_400_000:
+        x += 0.1 * np.exp(1j * (2 * np.pi * -300e3 * t + 2.5 * np.sin(2 * np.pi * 1000 * t)))
+        x += 0.05 * np.exp(2j * np.pi * (600e3 + 700) * t)
+    else:
+        x += 0.05 * np.exp(2j * np.pi * (30e3 + 700) * t)
+        x += 0.05 * np.exp(2j * np.pi * (-20e3 + 1000) * t)
+    return x.astype(np.complex64)
+
+
+def multi_chans(rt, B: int, per: int = 4, lo: float = 50.0, hi: float = 3000.0):
+    """`per` channels from -400 to 400 kHz on each of B inputs, input by
+    input (tests/test_multife.py's layout)."""
+    return tuple(rt.ChannelSpec(freq=float(f), low=lo, high=hi, input=b)
+                 for b in range(B) for f in np.linspace(-400e3, 400e3, per))
+
+
+def multi_blocks(nblocks: int, B: int, L: int, seed: int = 0, fs: float = CFS) -> np.ndarray:
+    """[nblocks, B, L] complex64: noise on every input, and on input b a
+    carrier 700 + 1000 b Hz above the b-th of multi_chans' four dials."""
+    rng = np.random.default_rng(seed)
+    x = 1e-3 * (rng.standard_normal((nblocks, B, L)) + 1j * rng.standard_normal((nblocks, B, L)))
+    t = np.arange(nblocks * L).reshape(nblocks, 1, L) / fs
+    for b in range(B):
+        f = np.linspace(-400e3, 400e3, 4)[b % 4] + 700.0 + 1000.0 * b
+        x[:, b:b + 1] += 0.05 * np.exp(2j * np.pi * f * t)
+    return x.astype(np.complex64)
+
+
+# two sig_gen front ends on one daemon (tests/test_multife.py's), their
+# channels bound by section and by numbered sub-list
+TWO_FE = """
+[global]
+hardware = fe0 fe1
+status = 127.0.0.1
+data = 127.0.0.1
+update = 3
+{opts}
+[fe0]
+device = sig_gen
+samprate = 1m024
+complex = yes
+carrier = 100k
+amplitude = -20
+noise = -90
+
+[fe1]
+device = sig_gen
+samprate = 1m024
+complex = yes
+carrier = 200k
+amplitude = -40
+noise = -90
+
+[chan-a]
+hardware = fe0
+demod = am
+samprate = 16k
+low = -5k
+high = 5k
+freq = 100k
+
+[chan-b]
+hardware = fe1
+demod = am
+samprate = 16k
+low = -5k
+high = 5k
+freq = 200k
+
+[usb]
+mode = usb
+samprate = 16k
+freq0 = 150k
+hardware0 = fe0
+freq1 = 151k
+hardware1 = fe1
+"""
+
+
+def two_fe_blocks(n: int, L: int, seed: int, lead=()) -> np.ndarray:
+    """[n, *lead, 2, L]: fe0 a -20 dBFS carrier at 100 kHz and a tone 700 Hz
+    above 150 kHz, fe1 a -40 dBFS carrier at 200 kHz and a tone 1 kHz above
+    151 kHz, over noise."""
+    rng = np.random.default_rng(seed)
+    shape = (n,) + tuple(lead) + (2, L)
+    x = 1e-4 * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+    t = np.arange(int(np.prod(shape[:-2])) * L).reshape(shape[:-2] + (1, L)) / CFS
+    x[..., 0:1, :] += 0.1 * np.exp(2j * np.pi * 100e3 * t) + 0.02 * np.exp(2j * np.pi * 150_700 * t)
+    x[..., 1:2, :] += 0.01 * np.exp(2j * np.pi * 200e3 * t) + 0.02 * np.exp(2j * np.pi * 152e3 * t)
+    return x.astype(np.complex64)
