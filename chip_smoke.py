@@ -41,7 +41,17 @@ only, the per-input IF power in the status). Last, the client side:
 fft-gen-torch's cold start of the rx888-wspr config (a subprocess),
 pcmrecord-torch (a subprocess) recording the carrier of the daemon phase's
 farm, and stereod-torch's decode on the card against its CPU path, timed,
-then its CLI over 127.0.0.1. Each phase prints one JSON
+then its CLI over 127.0.0.1. Before the clients, the sharded engine (the
+`mesh` phase) on D = 4 and 8 shards of the one card ([cuda:0] * D: one
+process over a list of devices, the corner turns and gathers as copies on
+the card): the flagship parity drive (sharded against single-device over
+10 blocks with a retune and a table grow), kernels A and B on every shard's
+local rows against their plain versions and in a profiler trace (D
+launches of each a block), step_time at D = 8 (the halo tail exact, the
+outputs against 8 steps), radiod-torch with `mesh = yes` on
+examples/radiod@mesh-rx888.conf twice (its own make_mesh(), and 4 shards),
+and the sharded step's ms beside the single-device step's. It checks no
+peer copy between cards and no shards running at once. Each phase prints one JSON
 line; the kernels line and the card's `nvidia-smi` name and power limit
 come before the last line, which is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Long logs
@@ -1953,6 +1963,307 @@ def check_clients(cl: dict) -> None:
              f"{sd['cli']['frames']} frames")
 
 
+# ------------------------------------------------------------ the sharded engine
+MESH_CONF = ROOT / "examples" / "radiod@mesh-rx888.conf"
+MESH_DS = (4, 8)  # shards of the one card the mesh phase runs the flagship on
+MESH_BLOCKS = 10  # flagship_parity's blocks (a retune at 3, a table grow at 6)
+MESH_DIAL = 14_095_600.0  # the WSPR dial whose channel the mesh daemon's carrier is in
+
+
+def shard_view(eng, params, group: str, d: int):
+    """Shard d of a sharded engine's group seen as a one-device engine of its
+    C/D local rows (its own device constants and host rows), for
+    check_kernels and the per-shard checks."""
+    from types import SimpleNamespace
+
+    from ka9q_radio_tpu_torch.parallel.sharding import local_tree
+
+    g = eng.groups[group]
+    D = eng.mesh.size
+    rows = slice(d * g.C // D, (d + 1) * g.C // D)
+    lg = SimpleNamespace(tile_E=g.lcs[d]["tile_E"], tile_op=g.lcs[d]["tile_op"], inputs_t=None,
+                         inputs=None, n_bins=g.n_bins, olen=g.olen, noise_bins=g.noise_bins,
+                         host={"tile_lo": g.host["tile_lo"][rows], "shifts": g.host["shifts"][rows]})
+    le = SimpleNamespace(groups={group: lg}, master=eng.master, samprate=eng.samprate, n_inputs=1)
+    return le, {group: local_tree(params[group], d)}
+
+
+def shard_kernel_errors(le, lp, F, group: str) -> tuple[float, float, float, bool]:
+    """Kernels A and B on one shard's local rows against their plain
+    versions: (A's max abs err, A's peak, B's max rel err, B's keys equal)."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.filterbank import tiled_channelize
+    from ka9q_radio_tpu_torch.ops.noise import estimate_noise_keys, gather_noise_bins
+
+    g, p, m = le.groups[group], lp[group], le.master
+    a = (F, p["resp_tiles"], p["tile_lo"], p["slope"], p["shifts"], g.tile_E, g.n_bins, g.olen,
+         m.real, m.N)
+    got, want = cc.cuda_channelize(*a, E_op=g.tile_op), tiled_channelize(*a)
+    n0, keys = cc.cuda_noise_est(F, p["shifts"], g.noise_bins, m.real, m.N, le.samprate)
+    n0_t, keys_t = estimate_noise_keys(gather_noise_bins(F, p["shifts"], g.noise_bins, m.real, m.N),
+                                       m.bins, le.samprate)
+    return (float((got - want).abs().max()), float(want.abs().max()),
+            float(((n0 - n0_t).abs() / n0_t.abs()).max()), bool(torch.equal(keys, keys_t)))
+
+
+def mesh_step_check(em, device, n: int = 4) -> dict:
+    """The main path of the sharded engine: n steps with the kernels' counts
+    set to 0 just before and read just after (A and B launch D times a
+    block, B on its cadence), then one more step under the profiler, whose
+    trace must hold D launches of each on the shards' C/D rows."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+
+    D, params = em.mesh.size, em.init_params()
+    blocks = noise_blocks(em, 4 + n + 1, N0_SCENE, device, 31)  # block 4 + n is due
+    st = em.init_state()
+    for b in range(4):
+        st, _ = em.step(st, params, blocks[b])
+    j0 = st["host"]["jobnum"]
+    due = sum(1 for b in range(j0, j0 + n) if b % em.noise_every == 0)
+    cc.reset_launches()
+    for b in range(4, 4 + n):
+        st, out = em.step(st, params, blocks[b])
+    torch.cuda.synchronize()
+    launches = {k: cc.launches[k] for k in ("channelize", "noise_est")}
+    if launches != {"channelize": D * n, "noise_est": D * due}:
+        fail(f"mesh D={D}: launches {launches}, want channelize {D * n}, noise_est {D * due}")
+    if not outputs_finite(out):
+        fail(f"mesh D={D}: non-finite outputs")
+    if st["host"]["jobnum"] % em.noise_every:
+        fail(f"mesh D={D}: the traced block is not one that re-estimates N0")
+    _, kern, _ = traced(lambda: em.step(st, params, blocks[4 + n]), f"mesh D={D} step")
+    in_trace = {name: sum(1 for ev in kern if sub in ev.name) for name, sub in KERNEL_NAMES}
+    if in_trace != {"channelize": D, "noise_est": D}:
+        fail(f"mesh D={D}: the traced step launched {in_trace}, want {D} of each")
+    return {"blocks": n, "due_blocks": due, "launches": launches, "traced_launches": in_trace,
+            "local_C": em.groups["hf"].C // D}
+
+
+def mesh_kernels(em, device) -> dict:
+    """A and B on every shard's local rows of the all-gathered flagship
+    spectrum against their plain versions; shard 0's timed (check_kernels:
+    ms, plain ms, bound, the torch.matmul / torch.kthvalue yardstick)."""
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft, master_init
+
+    gen = torch.Generator(device=device).manual_seed(32)
+    blk = 0.05 * torch.randn(em.L, generator=gen, device=device)
+    _, F = master_fft(em.master, master_init(em.master, device=device), blk)
+    params = em.init_params()
+    errs = [shard_kernel_errors(*shard_view(em, params, "hf", d), F, "hf")
+            for d in range(em.mesh.size)]
+    for d, (ea, peak, rb, keys) in enumerate(errs):
+        if not ea < 3e-5 * peak or not keys or not rb <= 2e-5:
+            fail(f"mesh shard {d}: A err {ea} (bound {3e-5 * peak}), B keys {keys}, rel {rb}")
+    timed = {k["name"]: k for k in check_kernels(*shard_view(em, params, "hf", 0), F)}
+    return {"shards": len(errs), "max_abs_err_a": max(e[0] for e in errs),
+            "err_bound_a": 3e-5 * min(e[1] for e in errs),
+            "max_rel_err_b": max(e[2] for e in errs), "keys_equal_b": True, "shard0": timed}
+
+
+def mesh_time_shards(rt, device, D: int = 8) -> dict:
+    """step_time at the flagship on D shards of the card: the halo tail
+    against D sequential master steps (exact), the outputs against D step
+    calls (tests/test_timeshard_engine.py's bounds), ms a dispatch."""
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft, master_init
+    from ka9q_radio_tpu_torch.parallel import make_mesh
+    from ka9q_radio_tpu_torch.parallel.timeshard import batch_master_fft
+
+    mesh = make_mesh([device] * D)
+    et = rt.Engine(samprate=FS, real=True, groups=rx888_groups(rt), mesh=mesh, time_shards=D)
+    es = rt.Engine(samprate=FS, real=True, groups=rx888_groups(rt), device=device)
+    blocks = noise_blocks(es, 3 * D, N0_SCENE, device, 33)
+    # the halo: D blocks at once against D sequential master steps
+    seq, ms = [], master_init(es.master, device=device)
+    for b in range(D):
+        ms, F = master_fft(es.master, ms, blocks[b])
+        seq.append(F)
+    tail, Fb = batch_master_fft(es.master, master_init(es.master, device=device)["tail"],
+                                blocks[:D], mesh)
+    tail_exact = bool(torch.equal(tail.full(), ms["tail"]))
+    f_err = float((Fb.full() - torch.stack(seq)).abs().max())
+    if not tail_exact or f_err > 1e-6 * float(torch.stack(seq).abs().max()):
+        fail(f"time shards: tail exact {tail_exact}, spectra differ by {f_err}")
+    st, ss = et.init_state(), es.init_state()
+    pt, ps = et.init_params(), es.init_params()
+    worst = 0.0
+    for k in range(2):
+        st, ot = et.step_time(st, pt, blocks[k * D:(k + 1) * D])
+        for d in range(D):
+            ss, o = es.step(ss, ps, blocks[k * D + d])
+            a, b = ot["hf"]["audio"][d], o["hf"]["audio"]
+            over = float(((a - b).abs() / (2e-6 + 2e-5 * b.abs())).max())
+            worst = max(worst, over)
+    if not worst <= 1.0:
+        fail(f"time shards: outputs off D step calls by {worst} x (rtol 2e-5, atol 2e-6)")
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    st, ot = et.step_time(st, pt, blocks[2 * D:])
+    e1.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return {"D": D, "tail_exact": tail_exact, "spectra_max_abs_diff": f_err,
+            "outputs_err_over_bound": worst, "ms_per_dispatch": e0.elapsed_time(e1),
+            "host_enqueue_ms_per_dispatch": host_ms, "blocks_per_dispatch": D}
+
+
+def mesh_daemon_config(dport: int, sport: int) -> tuple[str, list[str]]:
+    """examples/radiod@mesh-rx888.conf with the daemon phase's `reduced`:
+    the front end a sig_gen at the same 129m6 real rate with a carrier
+    1,500 Hz above one WSPR dial, the streams on local ports, no
+    announcements."""
+    import re
+
+    text = MESH_CONF.read_text()
+    feed = ("[rx888-feed]\ndevice = sig_gen\nsamprate = 129m6\nreal = yes\n"
+            f"carrier = {MESH_DIAL + 1500:.0f}\namplitude = -60\nn0 = -138\n\n")
+    text, n = re.subn(r"\[rx888-feed\].*?(?=\n\[WSPR\])", feed, text, flags=re.S)
+    if n != 1:
+        fail("the mesh config's [rx888-feed] section was not found")
+    for name in ("hf8-pcm.local", "wspr-pcm.local", "ft8-pcm.local"):
+        text = text.replace(f"data = {name}", f"data = 127.0.0.1:{dport}")
+    text = text.replace("status = hf8.local", f"status = 127.0.0.1:{sport}")
+    text = text.replace("[global]\n", "[global]\nsap = no\nadvertise = no\n", 1)
+    reduced = [
+        "[rx888-feed]: device = rtp (rx888-iq.local, 129.6 Msps s16be) -> device = sig_gen at "
+        f"samprate 129m6, real = yes: carrier {MESH_DIAL + 1500:.0f} Hz (the {MESH_DIAL:.0f} Hz "
+        "WSPR dial + 1,500 Hz) at -60 dBFS, noise density -138 dBFS/Hz",
+        f"data, status: hf8-pcm/wspr-pcm/ft8-pcm.local, hf8.local -> 127.0.0.1:{dport}, "
+        f"127.0.0.1:{sport}",
+        "sap = no, advertise = no: no SAP or mDNS announcements (the run has no network)",
+    ]
+    return text, reduced
+
+
+def run_mesh_daemon(mesh) -> dict:
+    """radiod-torch with `mesh = yes` on examples/radiod@mesh-rx888.conf, on
+    `mesh` (None: the daemon's own make_mesh(), every local card): the
+    carrier's tone at 1,500 Hz in the received RTP, a +500 Hz retune moving
+    it to 1,000 Hz, and the block times."""
+    import select
+    import socket
+
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, encode_status
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    dport, sport = _free_port(), _free_port()
+    text, reduced = mesh_daemon_config(dport, sport)
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+    rx.bind(("127.0.0.1", dport))
+    t0 = time.perf_counter()
+    rd = Radiod(load_config(text), use_network=True, data_port=dport, status_port=sport,
+                mesh=mesh)
+    t_init = time.perf_counter() - t0
+    if rd.engine.mesh is None or rd.engine.digit is None:
+        fail("mesh daemon: the engine is not the sharded one")
+    ch = next((c for c in rd.chans.values() if c.freq == MESH_DIAL), None)
+    if ch is None:
+        fail(f"mesh daemon: no channel at the {MESH_DIAL} Hz dial")
+    pkts: list[tuple[int, bytes]] = []
+
+    def tone(nblocks: int) -> tuple[float, int]:
+        pkts.clear()
+        for _ in range(nblocks):
+            rd.step_block()
+            while select.select([rx], [], [], 0)[0]:
+                h, payload = RtpHeader.unpack(rx.recv(65536))
+                if h.ssrc == ch.ssrc:
+                    pkts.append((h.seq, payload))
+        audio = np.concatenate([np.frombuffer(p, ">i2") for _, p in sorted(pkts)]) \
+            if pkts else np.zeros(0)
+        return (peak_hz(audio.astype(np.float64), ch.samprate) if audio.size else 0.0), audio.size
+
+    for _ in range(4):
+        rd.step_block()
+    rd._t_n = 0
+    peak1, n1 = tone(48)
+    p50, p99 = rd.latency_percentiles()
+    rd.handle_packet(encode_status({T.OUTPUT_SSRC: ch.ssrc, T.COMMAND_TAG: 1,
+                                    T.RADIO_FREQUENCY: MESH_DIAL + 500.0}, cmd=True))
+    rd.step_block()
+    peak2, n2 = tone(24)
+    rx.close()
+    for edge, _ in rd.edges.values():
+        edge.close()
+    out = {"D": rd.engine.mesh.size, "devices": [str(d) for d in rd.engine.mesh.devices],
+           "reduced": reduced, "init_s": t_init,
+           "groups": {n: g.C for n, g in rd.engine.groups.items()},
+           "carrier_ssrc": ch.ssrc, "tone_hz": peak1, "tone_samples": int(n1),
+           "retune_tone_hz": peak2, "retune_samples": int(n2),
+           "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "block_drops": rd.block_drops}
+    if abs(peak1 - 1500.0) > 10.0 or n1 == 0:
+        fail(f"mesh daemon D={out['D']}: the carrier's channel peaks at {peak1} Hz ({n1} "
+             "samples), want 1500")
+    if abs(peak2 - 1000.0) > 10.0:
+        fail(f"mesh daemon D={out['D']}: after the +500 Hz retune the tone is at {peak2} Hz")
+    return out
+
+
+def run_mesh(rt, card: str, device) -> tuple[dict, dict]:
+    """The mesh phase: flagship_parity on D = 4 and 8 shards of the card,
+    the main path's launches and both kernels per shard, step_time at D = 8,
+    the daemon with `mesh = yes` twice, and the sharded step's ms beside
+    the single-device step's. Returns (the phase's JSON, per-kernel data
+    for the kernels line)."""
+    from ka9q_radio_tpu_torch.parallel import make_mesh
+    from ka9q_radio_tpu_torch.parallel.master import DigitMaster
+    from ka9q_radio_tpu_torch.parallel.selftest import flagship_parity
+
+    if device.type == "cuda":
+        device = torch.device("cuda", 0)  # the mesh names the card D times: [cuda:0] * D
+    t_phase = time.perf_counter()
+    out = {"phase": "mesh", "card": card,
+           "label": "D shards on one H100: the sharded code's overhead, not a multi-GPU speed",
+           "unverified": "peer copies between distinct cards; shards running at once"}
+    per_kernel: dict = {"channelize": {}, "noise_est": {}}
+    for D in MESH_DS:
+        mesh = make_mesh([device] * D)
+        dm = DigitMaster.plan(mesh, "c", int(round(FS * 0.02 * 1.25)))
+        print(f"mesh geometry: FLAGSHIP FS={FS:,} N={dm.n1 * dm.n2:,} split={dm.n1}x{dm.n2} "
+              f"D={D} devices={[str(d) for d in mesh.devices]}", flush=True)
+        t0 = time.perf_counter()
+        par = flagship_parity(mesh, nblocks=MESH_BLOCKS, FS=FS)
+        par["seconds"] = time.perf_counter() - t0
+        # the flagship (rx888: 1,000 hf SSB channels, the sweep) on D shards
+        em = rt.Engine(samprate=FS, real=True, groups=rx888_groups(rt), mesh=mesh)
+        launch = mesh_step_check(em, device)
+        kern = mesh_kernels(em, device)
+        params = em.init_params()
+        tm = timed_run(em, params, device, nblocks=32)
+        if not tm["finite"] or tm["launches"]["channelize"] != D * tm["blocks"]:
+            fail(f"mesh D={D} timed run: launches {tm['launches']}, finite {tm['finite']}")
+        out[f"d{D}"] = {"parity": par, "main_path": launch,
+                        "kernels": {"shards": kern["shards"],
+                                    "max_abs_err_a": kern["max_abs_err_a"],
+                                    "err_bound_a": kern["err_bound_a"],
+                                    "max_rel_err_b": kern["max_rel_err_b"]},
+                        "sharded_step": {k: tm[k] for k in ("ms_per_block",
+                                                            "host_enqueue_ms_per_block", "msps")}}
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_call",
+                "max_abs_err", "shape")
+        for name in per_kernel:
+            k = kern["shard0"][name]
+            per_kernel[name][f"d{D}"] = {
+                "local_C": launch["local_C"], "launches_per_block": D,
+                "launches": launch["launches"][name], **{x: k[x] for x in keys if x in k}}
+        del em
+        torch.cuda.empty_cache()
+    es = rt.Engine(samprate=FS, real=True, groups=rx888_groups(rt), device=device)
+    ts = timed_run(es, es.init_params(), device, nblocks=32)
+    out["single_device_step"] = {k: ts[k] for k in ("ms_per_block", "host_enqueue_ms_per_block",
+                                                   "msps")}
+    del es
+    out["time_shards"] = mesh_time_shards(rt, device)
+    out["daemon_make_mesh"] = run_mesh_daemon(None)
+    out["daemon_4_shards"] = run_mesh_daemon(make_mesh([device] * 4))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, per_kernel
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -2219,7 +2530,15 @@ def main() -> None:
     for kern in kernels[:2]:
         kern["multife_daemon_launches"] = md["launches"][kern["name"]]
 
-    # phase 14: the client side: fft-gen-torch's cold start of the daemon's
+    # phase 14: the sharded engine on D shards of the card (the mesh is one
+    # process over a list of devices; here every device is this card)
+    mesh_out, at_mesh = run_mesh(rt, card, device)
+    emit(mesh_out)
+    for kern in kernels[:2]:
+        kern["at_mesh"] = at_mesh[kern["name"]]
+    torch.cuda.empty_cache()
+
+    # phase 15: the client side: fft-gen-torch's cold start of the daemon's
     # config, pcmrecord-torch on the daemon of phase 5, stereod-torch's
     # decode on the card
     cl = run_clients(card, device, farm)

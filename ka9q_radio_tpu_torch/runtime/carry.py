@@ -17,19 +17,34 @@ from ..utils.device import resolve_device, to_tensors
 __all__ = ["params_from_jax", "state_from_jax"]
 
 
-def params_from_jax(tree, device=None):
-    """JAX engine params (numpy tree) -> the port's params on `device`."""
-    return to_tensors(tree, resolve_device(device))
+def _device(device, engine):
+    return engine.device if engine is not None else resolve_device(device)
 
 
-def state_from_jax(tree, device=None):
-    """JAX engine state (numpy tree) -> the port's state on `device`, with
-    its host mirrors."""
-    state = to_tensors(tree, resolve_device(device))
+def _placed(tree, engine):
+    """On a mesh engine, the tree placed over its mesh (shard_engine_tree)."""
+    if engine is None or engine.mesh is None:
+        return tree
+    from ..parallel import shard_engine_tree
+    return shard_engine_tree(engine, engine.mesh, tree)
+
+
+def params_from_jax(tree, device=None, engine=None):
+    """JAX engine params (numpy tree) -> the port's params on `device`; or,
+    given the port's engine, on its device, and on a mesh engine placed
+    over its mesh (the channel rows split as its own params are)."""
+    return _placed(to_tensors(tree, _device(device, engine)), engine)
+
+
+def state_from_jax(tree, device=None, engine=None):
+    """JAX engine state (numpy tree) -> the port's state on `device` (or the
+    engine's, placed over its mesh as params_from_jax does), with its host
+    mirrors."""
+    state = to_tensors(tree, _device(device, engine))
     groups = {}
     for name, g in tree["groups"].items():
         frames = g["demod"].get("frames")
         groups[name] = {"warmup": int(np.asarray(g["dc"]["warmup"])),
                         "frames": 0 if frames is None else int(np.asarray(frames))}
     state["host"] = {"jobnum": int(np.asarray(tree["master"]["jobnum"])), "groups": groups}
-    return state
+    return _placed(state, engine)

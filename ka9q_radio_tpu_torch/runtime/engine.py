@@ -32,16 +32,22 @@ Per-block per-group pipeline (downconvert(), radio.c:1451-1562):
      I/Q), NBFM with CTCSS, WFM stereo with RDS, or narrowband spectrum; a
      wide spectrum group takes windowed FFTs of the raw block instead.
 
-This port runs on one device: every demodulator of the JAX package,
-squelch-gated egress compaction, and the daemon's table surgery (retune and
-set_edges write rows in place; adopt_host_params and migrate_state carry a
-rebuilt channel table's params and state), with adaptive spur notches on
-the master bins. One engine serves B same-geometry inputs (n_inputs=B):
-step takes a [B, L] block, the master FFT runs over the [B] axis and its
-spectra are padded to rows of whole 128-bin tiles (the kernels' row
-stride); each channel reads the input its ChannelSpec (or its group) names,
-so one batched group can span every stream. Dual-antenna beamforming runs
-on complex masters. (The daemon refuses mesh = yes, the multi-GPU slice.)
+Every demodulator of the JAX package runs, with squelch-gated egress
+compaction and the daemon's table surgery (retune and set_edges write rows
+in place; adopt_host_params and migrate_state carry a rebuilt channel
+table's params and state), and adaptive spur notches on the master bins.
+One engine serves B same-geometry inputs (n_inputs=B): step takes a [B, L]
+block, the master FFT runs over the [B] axis and its spectra are padded to
+rows of whole 128-bin tiles (the kernels' row stride); each channel reads
+the input its ChannelSpec (or its group) names, so one batched group can
+span every stream. Dual-antenna beamforming runs on complex masters.
+
+On a mesh (parallel/, one process over a list of devices) the engine is
+sharded: the master runs as the distributed digit-order transform
+(parallel/master.py), each group's channels split into C/D rows a device,
+and kernels A and B run on each device's rows of the all-gathered
+natural-order spectrum; or, time-sharded, step_time runs D consecutive
+blocks a dispatch, one a device (parallel/timeshard.py).
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ from ..ops.filterbank import (
     channelize,
     channelize_beam,
     compute_tuning,
+    finish_channelize,
     fine_tune,
     isb_unpack,
     master_fft,
@@ -77,6 +84,9 @@ from ..models.spectrum import (spectrum_accumulate, spectrum_constants, spectrum
                                spectrum_init, wide_accumulate, wide_constants, wide_extract,
                                wide_geometry, wide_init)
 from ..models.wfm import AUDIO_SAMPRATE, wfm_constants, wfm_demod, wfm_design, wfm_geometry, wfm_init
+from ..ops.noise import estimate_noise
+from ..parallel.sharding import (Mesh, Sharded, all_gather, full_tree, local_tree, place_like,
+                                 reassemble, shard_engine_tree, write_row)
 from ..utils.device import resolve_device, to_tensors
 from ..utils.units import dB_to_power, dB_to_voltage
 
@@ -195,16 +205,29 @@ class GroupSpec:
             object.__setattr__(self, "snr_squelch", True)
 
 
+def _tree_to(tree, dev: torch.device):
+    """A tree of tensors (None leaves kept) on dev."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev, non_blocking=dev.type == "cuda") if torch.is_tensor(tree) else tree
+
+
 class _Group:
     """Host-side geometry, host mirrors and device params of one GroupSpec."""
 
     def __init__(self, spec: GroupSpec, master: MasterConfig, samprate: float, blocktime: float,
-                 centers: Sequence[float], noise_every: int, device: torch.device):
+                 centers: Sequence[float], noise_every: int, device: torch.device,
+                 mesh: Mesh | None = None, split: bool = False):
         self.spec = spec
         self.master = master
         self.fs_in = samprate
         self.blocktime = blocktime
         self.device = device
+        # on a mesh: split=True puts C/D channel rows on each device (the
+        # channel-sharded engine), split=False replicates the group on every
+        # device (the time-sharded engine)
+        self.mesh = mesh
+        self.split = split
         if spec.demod not in ("linear", "fm", "wfm", "spectrum"):
             raise ValueError(f"group {spec.name}: unknown demod {spec.demod!r}")
         # per-channel front-end binding (ChannelSpec.input overrides the
@@ -283,7 +306,47 @@ class _Group:
                                               device=device)
                 # the channelizer kernel's form of tile_E (split real-block GEMM operand)
                 self.tile_op = channelize_operand(self.tile_E, self.n_bins, self.olen)
+        self.lcs = self._local_consts()
         self.params = self._build_params()
+
+    def _local_consts(self) -> list:
+        """Each shard's device constants (one entry off a mesh): the IDFT
+        constant and its kernel operand, the channels' inputs (a split
+        group's local rows), the demodulators' constant tables."""
+        base = {"tile_E": self.tile_E, "tile_op": self.tile_op, "inputs": self.inputs_t,
+                "wfm": getattr(self, "wfm_consts", None),
+                "spectrum": getattr(self, "spectrum_consts", None),
+                "wide": getattr(self, "wide_consts", None)}
+        if self.mesh is None:
+            return [base]
+        D = self.mesh.size
+        by_dev: dict = {}
+        out = []
+        for d, dev in enumerate(self.mesh.devices):
+            if dev not in by_dev:
+                by_dev[dev] = _tree_to(base, dev)
+            lc = dict(by_dev[dev])
+            if self.split and lc["inputs"] is not None:
+                lc["inputs"] = torch.chunk(lc["inputs"], D)[d].contiguous()
+            out.append(lc)
+        return out
+
+    def _place(self, host_tree) -> dict[str, Any]:
+        """Host mirrors -> device params: on one device, or on a mesh split
+        into C/D channel rows (leaves led by C) or replicated."""
+        p = to_tensors(host_tree, self.device)
+        if self.mesh is None:
+            return p
+        C = self.C if self.split else None
+
+        def place(t):
+            if isinstance(t, dict):
+                return {k: place(v) for k, v in t.items()}
+            if C is not None and t.dim() >= 1 and t.shape[0] == C:
+                return Sharded.split(t, self.mesh, 0)
+            return Sharded.replicate(t, self.mesh)
+
+        return place(p)
 
     # -- retunable params ---------------------------------------------------
     def _tuning_arrays(self, freqs: np.ndarray):
@@ -410,7 +473,7 @@ class _Group:
         # build-time demod defaults: a freed dynamic slot is restored from these
         self.pristine_demod = {k: np.copy(v) for k, v in d.items()}
         self.host = p  # authoritative numpy mirrors for host-side surgery
-        return to_tensors(p, self.device)
+        return self._place(p)
 
     def _refresh_tile_row(self, idx: int) -> None:
         """Recompute one channel's tile-frame layout from the host mirrors."""
@@ -437,9 +500,9 @@ class _Group:
         if self.tiled:
             self._refresh_tile_row(idx)
             keys += ["tile_lo", "slope"]
-            params["resp_tiles"][idx].copy_(torch.from_numpy(h["resp_tiles"][idx]))
+            write_row(params["resp_tiles"], idx, h["resp_tiles"][idx])
         for k in keys:
-            params[k][idx] = int(h[k][idx])
+            write_row(params[k], idx, int(h[k][idx]))
         return params
 
     def set_edges(self, params: dict[str, Any], idx: int, low: float, high: float,
@@ -451,13 +514,13 @@ class _Group:
         params in place. Returns `params` itself."""
         h = self.host
         h["responses"][idx] = self._design_main(low, high, kaiser_beta)
-        params["responses"][idx].copy_(torch.from_numpy(h["responses"][idx]))
+        write_row(params["responses"], idx, h["responses"][idx])
         if self.tiled:
             self._refresh_tile_row(idx)
-            params["resp_tiles"][idx].copy_(torch.from_numpy(h["resp_tiles"][idx]))
+            write_row(params["resp_tiles"], idx, h["resp_tiles"][idx])
         if self.f2_N:
             h["responses2"][idx] = self._design_f2(low, high, filter2_kaiser_beta)
-            params["responses2"][idx].copy_(torch.from_numpy(h["responses2"][idx]))
+            write_row(params["responses2"], idx, h["responses2"][idx])
         if "bandwidth" in h["demod"]:
             self.set_demod(params, idx, "bandwidth", abs(high - low))
         return params
@@ -469,7 +532,7 @@ class _Group:
         if key not in d:
             return False
         d[key][idx] = value
-        params["demod"][key][idx] = d[key][idx].item()
+        write_row(params["demod"][key], idx, d[key][idx].item())
         return True
 
     def set_armed(self, params: dict[str, Any], armed: bool) -> dict[str, Any]:
@@ -505,12 +568,14 @@ class _Group:
         return {"dc": dc, "demod": ds}
 
     # -- per-block device program -------------------------------------------
-    def _channelize(self, params, F):
+    def _channelize(self, params, F, d: int = 0):
         """Master spectrum F ([m_bins], or [B, ld] on an engine of B inputs)
         -> [C, olen] baseband (pre fine-tune): kernel A, or for a slice past
         _IDFT_BYTES of IDFT constant the FFT-IDFT form; the beamforming or
-        the per-element channelizer where the tiled form does not apply."""
-        m, inp = self.master, self.inputs_t
+        the per-element channelizer where the tiled form does not apply.
+        d: the shard (its device constants; 0 off a mesh)."""
+        m, lc = self.master, self.lcs[d]
+        inp = lc["inputs"]
         if self.spec.beam:
             return channelize_beam(F, params["responses"], params["shifts"], self.olen, m.N,
                                    params["beam_alpha"], params["beam_beta"], inputs=inp)
@@ -518,16 +583,48 @@ class _Group:
             return channelize(F, params["responses"], params["shifts"], self.olen, m.real, m.N,
                               inputs=inp)
         args = (F, params["resp_tiles"], params["tile_lo"], params["slope"], params["shifts"],
-                self.tile_E, self.n_bins, self.olen, m.real, m.N)
-        if self.tile_E is None:
+                lc["tile_E"], self.n_bins, self.olen, m.real, m.N)
+        if lc["tile_E"] is None:
             return tiled_channelize(*args, inputs=inp)
-        return cuda_channelize(*args, E_op=self.tile_op, inputs=inp)
+        return cuda_channelize(*args, E_op=lc["tile_op"], inputs=inp)
 
-    def _noise_est(self, params, F):
-        """N0 estimate from the master bins around each channel."""
+    def _noise_est(self, params, F, d: int = 0):
+        """N0 estimate from the master bins around each channel (kernel B)."""
         m = self.master
         return cuda_noise_est(F, params["shifts"], self.noise_bins, m.real, m.N, self.fs_in,
-                              inputs=self.inputs_t)[0]
+                              inputs=self.lcs[d]["inputs"])[0]
+
+    def _cadence(self, host: dict, jobnum: int) -> tuple[bool, bool]:
+        """(warm, due) of one block from the host mirrors: the master's
+        warm-up countdown, and whether N0 re-estimates on this block."""
+        warm = host["warmup"] > 0
+        return warm, self.noise_every == 1 or warm or jobnum % self.noise_every == 0
+
+    def _idle(self, device, lead: tuple = ()):
+        """A disarmed spectrum group's outputs: zero bins and power."""
+        nb = self.spec.bin_count if self.spectrum_wide else self.spectrum_geo.bin_count
+        zeros = torch.zeros(lead + (self.C,), dtype=torch.float32, device=device)
+        return (torch.zeros(lead + (self.C, 0), dtype=torch.float32, device=device),
+                {"bin_data": torch.zeros(lead + (self.C, nb), dtype=torch.float32, device=device),
+                 "baseband_power": zeros})
+
+    def _wide(self, state, params, block, host, d: int = 0):
+        """A wide spectrum group's block: the raw block's windowed FFTs."""
+        demod_state, pwr = wide_accumulate(state["demod"], block, self.wide_geo,
+                                           self.lcs[d]["wide"], host["frames"])
+        bins = wide_extract(pwr, params["shifts"], self.master.N, self.wide_geo,
+                            self.spec.bin_count)
+        info = {"bin_data": bins, "baseband_power": bins.sum(-1),
+                "n0": torch.zeros((self.C,), dtype=torch.float32, device=block.device)}
+        new_host = dict(host, frames=host["frames"] + self.wide_geo.frames_per_block)
+        return ({"dc": state["dc"], "demod": demod_state},
+                torch.zeros((self.C, 0), dtype=torch.float32, device=block.device), info, new_host)
+
+    def _next_host(self, host: dict) -> dict:
+        new_host = dict(host, warmup=max(host["warmup"] - 1, 0))
+        if self.spec.demod == "spectrum":
+            new_host["frames"] = host["frames"] + self.spectrum_geo.frames_per_block
+        return new_host
 
     def step(self, state, params, F, block, jobnum: int, host: dict):
         """One block for this group. jobnum: host block counter (before this
@@ -535,37 +632,132 @@ class _Group:
         Returns (new_state, audio, info, new_host)."""
         if self.spec.demod == "spectrum" and not self.host["armed"]:
             # poll-gated: a disarmed spectrum group computes nothing
-            nb = self.spec.bin_count if self.spectrum_wide else self.spectrum_geo.bin_count
-            zeros = torch.zeros((self.C,), dtype=torch.float32, device=F.device)
-            info = {"bin_data": torch.zeros((self.C, nb), dtype=torch.float32, device=F.device),
-                    "baseband_power": zeros,
-                    "n0": zeros if self.spectrum_wide else state["dc"]["n0"]}
-            return state, torch.zeros((self.C, 0), dtype=torch.float32, device=F.device), \
-                info, host
+            audio, info = self._idle(F.device)
+            info["n0"] = info["baseband_power"] if self.spectrum_wide else state["dc"]["n0"]
+            return state, audio, info, host
         if self.spectrum_wide:
-            demod_state, pwr = wide_accumulate(state["demod"], block, self.wide_geo,
-                                               self.wide_consts, host["frames"])
-            bins = wide_extract(pwr, params["shifts"], self.master.N, self.wide_geo,
-                                self.spec.bin_count)
-            info = {"bin_data": bins, "baseband_power": bins.sum(-1),
-                    "n0": torch.zeros((self.C,), dtype=torch.float32, device=F.device)}
-            new_host = dict(host, frames=host["frames"] + self.wide_geo.frames_per_block)
-            return ({"dc": state["dc"], "demod": demod_state},
-                    torch.zeros((self.C, 0), dtype=torch.float32, device=F.device), info, new_host)
+            return self._wide(state, params, block, host)
         bb = self._channelize(params, F)
-        warm = host["warmup"] > 0
-        due = self.noise_every == 1 or warm or jobnum % self.noise_every == 0
+        warm, due = self._cadence(host, jobnum)
         n0_est = self._noise_est(params, F) if due else None
         new_state, audio, info = self._demod_tail(state, params, bb, n0_est, due, warm,
                                                   host["frames"])
-        new_host = dict(host, warmup=max(host["warmup"] - 1, 0))
-        if self.spec.demod == "spectrum":
-            new_host["frames"] = host["frames"] + self.spectrum_geo.frames_per_block
-        return new_state, audio, info, new_host
+        return new_state, audio, info, self._next_host(host)
 
-    def _demod_tail(self, state, params, bb, n0_est, due: bool, warm: bool, frames: int = 0):
+    def step_mesh(self, state, params, Ff, spec, block, jobnum: int, host: dict):
+        """One block of a group split over the mesh's channel axis.
+
+        Ff: each device's whole natural-order master spectrum (the one
+        all-gather of the block), read by kernels A and B on the device's
+        local C/D channel rows; spec: the block's DigitSpectrum, whose
+        gathers serve the per-element and beamforming channelizers and their
+        noise windows; block: the raw block on the first device (a wide
+        spectrum reads it). State and params are trees of Sharded leaves.
+        Returns (new_state, audio, info, new_host), the outputs whole on the
+        first device."""
+        mesh = self.mesh
+        D, dev0 = mesh.size, mesh.devices[0]
+        if self.spec.demod == "spectrum" and not self.host["armed"]:
+            audio, info = self._idle(dev0)
+            info["n0"] = (info["baseband_power"] if self.spectrum_wide
+                          else state["dc"]["n0"].full(dev0))
+            return state, audio, info, host
+        if self.spectrum_wide:
+            # reads the raw block: run once, on the first device, and
+            # replicate its state
+            ns, audio, info, new_host = self._wide(full_tree(state, dev0),
+                                                   full_tree(params, dev0), block, host)
+            return place_like(ns, state, mesh), audio, info, new_host
+        warm, due = self._cadence(host, jobnum)
+        if self.tiled:
+            bb, n0 = self._chan_noise_mesh(params, Ff, due)
+        else:
+            bb, n0 = self._chan_noise_digit(params, spec, due)
+        outs = [self._demod_tail(local_tree(state, d), local_tree(params, d), bb[d], n0[d], due,
+                                 warm, host["frames"], d, compact=False) for d in range(D)]
+        new_state = reassemble([o[0] for o in outs], state, mesh)
+        audio = torch.cat([o[1].to(dev0) for o in outs])
+        rows = self.C // D
+        info = {k: (torch.cat([o[2][k].to(dev0) for o in outs])
+                    if v.dim() >= 1 and v.shape[0] == rows else v.to(dev0))
+                for k, v in outs[0][2].items()}
+        if self.spec.egress_slots and audio.shape[1] > 0 and "send" in info:
+            audio = self._compact(audio, info)
+        return new_state, audio, info, self._next_host(host)
+
+    def _chan_noise_mesh(self, params, Ff: list, due: bool) -> tuple[list, list]:
+        """Kernels A and B on each device's local C/D rows of its whole
+        spectrum Ff[d]: (baseband [C/D, olen], N0 [C/D] or None) a shard."""
+        D = self.mesh.size
+        lps = [local_tree(params, d) for d in range(D)]
+        return ([self._channelize(lps[d], Ff[d], d) for d in range(D)],
+                [self._noise_est(lps[d], Ff[d], d) if due else None for d in range(D)])
+
+    def _chan_noise_digit(self, params, spec, due: bool) -> tuple[list, list]:
+        """The per-element and beamforming channelizers and their noise
+        windows on a sharded master: DigitSpectrum's gathers (each device
+        reads the bins it owns, one psum_scatter leaves its C/D rows), the
+        responses, one batched inverse FFT a shard."""
+        inputs = self.inputs_t
+        if self.spec.beam:
+            fd = spec.gather_beam(params["shifts"], self.n_bins, params["beam_alpha"],
+                                  params["beam_beta"], inputs)
+        else:
+            fd = spec.gather(params["shifts"], self.n_bins, inputs)
+        bb = [finish_channelize(f * r, self.olen)
+              for f, r in zip(fd.shards, params["responses"].shards)]
+        if not due:
+            return bb, [None] * len(bb)
+        e = spec.gather_noise(params["shifts"], self.noise_bins, inputs)
+        return bb, [estimate_noise(x, self.master.bins, self.fs_in) for x in e.shards]
+
+    def step_blocks(self, state, params, Fs: list, blocks: list, jobnum0: int, host: dict):
+        """D consecutive blocks of a time-sharded group (replicated over the
+        mesh): block d's channelizer and N0 estimate run on device d, on
+        its own master spectrum Fs[d] (kernels A and B, one launch each a
+        block); the stateful demodulator tails then run block after block
+        on the first device. Equals D step() calls. blocks: the raw blocks
+        on the first device (a wide spectrum reads them). Returns
+        (new_state, audio [D, ...], info [D, ...], new_host)."""
+        mesh = self.mesh
+        D, dev0 = mesh.size, mesh.devices[0]
+        if self.spec.demod == "spectrum" and not self.host["armed"]:
+            audio, info = self._idle(dev0, (D,))
+            info["n0"] = (info["baseband_power"] if self.spectrum_wide
+                          else state["dc"]["n0"].full(dev0).expand(D, self.C))
+            return state, audio, info, host
+        st, p0 = local_tree(state, 0), local_tree(params, 0)
+        outs = []
+        if self.spectrum_wide:
+            for d in range(D):
+                st, audio, info, host = self._wide(st, p0, blocks[d], host)
+                outs.append((audio, info))
+        else:
+            cad = []
+            h = host
+            for d in range(D):
+                cad.append(self._cadence(h, jobnum0 + d))
+                h = self._next_host(h)
+            lps = [local_tree(params, d) for d in range(D)]
+            bb = [self._channelize(lps[d], Fs[d], d) for d in range(D)]
+            n0 = [self._noise_est(lps[d], Fs[d], d) if cad[d][1] else None for d in range(D)]
+            for d in range(D):
+                warm, due = cad[d]
+                st, audio, info = self._demod_tail(
+                    st, p0, bb[d].to(dev0), None if n0[d] is None else n0[d].to(dev0), due,
+                    warm, host["frames"])
+                host = self._next_host(host)
+                outs.append((audio, info))
+        audio = torch.stack([o[0] for o in outs])
+        info = {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
+        return place_like(st, state, mesh), audio, info, host
+
+    def _demod_tail(self, state, params, bb, n0_est, due: bool, warm: bool, frames: int = 0,
+                    d: int = 0, compact: bool = True):
         """N0 EMA on the cadence, fine-tune NCO, filter2 cascade, demod.
-        frames: a narrowband spectrum group's host frame count."""
+        frames: a narrowband spectrum group's host frame count; d: the shard
+        (its device constants); compact=False leaves egress compaction to the
+        caller (a split group compacts its whole output)."""
         prev_n0 = state["dc"]["n0"]
         if not due:
             n0 = prev_n0
@@ -588,18 +780,19 @@ class _Group:
                 fd = isb_unpack(fd)  # LSB/USB -> I/Q (filter.c:862-876)
             bb = torch.fft.ifft(fd)[:, self.f2_N - self.olen:]
         bb_power = (bb.real * bb.real + bb.imag * bb.imag).mean(-1)
-        spec = self.spec
+        spec, lc = self.spec, self.lcs[d]
+        C = bb.shape[0]
         if spec.demod == "fm":
             demod_state, audio, info = fm_demod(
                 state["demod"], bb, bb_power, n0, params["demod"],
                 samprate=spec.samprate, blocktime=self.blocktime, ctcss=spec.ctcss)
         elif spec.demod == "wfm":
             demod_state, audio, info = wfm_demod(
-                state["demod"], bb, bb_power, n0, params["demod"], self.wfm_geo, self.wfm_consts)
+                state["demod"], bb, bb_power, n0, params["demod"], self.wfm_geo, lc["wfm"])
         elif spec.demod == "spectrum":
             demod_state, pwr = spectrum_accumulate(state["demod"], bb, self.spectrum_geo,
-                                                   self.spectrum_consts, frames)
-            audio = torch.zeros((self.C, 0), dtype=torch.float32, device=bb.device)
+                                                   lc["spectrum"], frames)
+            audio = torch.zeros((C, 0), dtype=torch.float32, device=bb.device)
             info = {"bin_data": pwr}
         else:
             demod_state, audio, info = linear_demod(
@@ -608,7 +801,7 @@ class _Group:
                 enable_pll=spec.enable_pll, envelope=spec.envelope, stereo=spec.stereo)
         info["baseband_power"] = bb_power
         info["n0"] = n0
-        if spec.egress_slots and audio.shape[1] > 0 and "send" in info:
+        if compact and spec.egress_slots and audio.shape[1] > 0 and "send" in info:
             audio = self._compact(audio, info)
         return {"dc": new_dc, "demod": demod_state}, audio, info
 
@@ -642,6 +835,13 @@ class Engine:
     device: None runs on CUDA and raises where there is none; "cpu" runs
     the plain PyTorch versions of the kernels. n_inputs=B serves B
     same-geometry front-end streams: step then takes [B, L] blocks.
+
+    mesh (parallel.make_mesh): the sharded engine. The master FFT runs as
+    the distributed digit-order transform (parallel/master.py), each group's
+    channels split into C/D rows a device, and step returns the outputs
+    whole on the mesh's first device. time_shards=D (with a mesh of D
+    devices) instead runs D consecutive blocks a dispatch, one a device,
+    through step_time. State and params are then trees of Sharded leaves.
     """
 
     def __init__(self, samprate: float, groups: Sequence[GroupSpec], real: bool = True,
@@ -649,7 +849,8 @@ class Engine:
                  center: float | Sequence[float] = 0.0, noise_every: int = 4,
                  spurs: Sequence[float] | None = None, fft: str = "auto",
                  fft_precision: str = "high", use_matmul: bool = False, n_inputs: int = 1,
-                 device=None):
+                 device=None, mesh: Mesh | None = None, shard_axis: str = "c",
+                 time_shards: int = 0):
         """The JAX engine's keywords, where this port has their mechanism.
         fft "auto" or "monolithic" and fft_precision "high" or "exact" run
         cuFFT in FP32 (torch.fft); the MXU cascade and four-step split
@@ -658,7 +859,9 @@ class Engine:
         notch adaptively on the master bins (DC always with them), on every
         input. n_inputs: the number of front-end streams (the reference
         needs one host per SDR); center: the front-end centre, one for all
-        inputs or one per input."""
+        inputs or one per input. mesh, shard_axis, time_shards: the class
+        docstring; with a mesh the engine lives on its devices (a device
+        given beside it must be of the same type)."""
         fft, fft_precision = str(fft).lower(), str(fft_precision).lower()
         if fft in ("mxu", "split"):
             raise ValueError(f"fft={fft!r} picks the TPU's matmul-cascade master FFT; the port's "
@@ -673,6 +876,20 @@ class Engine:
         if use_matmul:
             raise ValueError("use_matmul (matmul = yes) picks the TPU's MXU matmul channelizer; "
                              "the port's channelizer is its CUDA kernel")
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self.time_shards = int(time_shards)
+        if self.time_shards:
+            if mesh is None:
+                raise ValueError("time_shards needs a mesh")
+            if self.time_shards != mesh.shape[shard_axis]:
+                raise ValueError(f"time_shards={time_shards} != mesh axis size "
+                                 f"{mesh.shape[shard_axis]} (one block per device)")
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.devices[0].type:
+                raise ValueError(f"device={device} with a mesh of {mesh.devices[0].type} "
+                                 "devices")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.master = MasterConfig.from_rate(samprate, blocktime, overlap, real)
         self.samprate = float(samprate)
@@ -700,8 +917,30 @@ class Engine:
                 if c.input is not None and not 0 <= c.input < self.n_inputs:
                     raise ValueError(f"group {g.name}: channel input {c.input} outside "
                                      f"{self.n_inputs} stream(s)")
+        # the channel-sharded engine: the distributed master (a split that
+        # does not fit raises) and every group split into C/D rows
+        self.digit = None
+        split = mesh is not None and not self.time_shards
+        if split:
+            from ..parallel.master import DigitMaster
+
+            D = mesh.shape[shard_axis]
+            for g in groups:
+                if len(g.channels) % D:
+                    raise ValueError(f"group {g.name}: C={len(g.channels)} not divisible by mesh "
+                                     f"size {D} (pad the channel list for even sharding)")
+            self.digit = DigitMaster.plan(mesh, shard_axis, self.master.N, real=self.master.real,
+                                          precision=fft_precision)
+        # column-layout master tail: when the block advance L and the tail
+        # N-L are whole [*, n2] rows, the sample matrix is carried already in
+        # the four-step transform's column layout and the first corner turn
+        # leaves the per-block path (DigitMaster.fft_natural cols_in).
+        # Flagship: L = 1,440 rows, tail = 360 rows of n2 = 1,800.
+        self.digit_cols = (self.digit is not None
+                           and self.master.L % self.digit.n2 == 0
+                           and (self.master.N - self.master.L) % self.digit.n2 == 0)
         self.groups = {g.name: _Group(g, self.master, self.samprate, blocktime, self.centers,
-                                      self.noise_every, self.device)
+                                      self.noise_every, self.device, mesh=mesh, split=split)
                        for g in groups}
         # adaptive spur notches on master bins (radio.c:662-683,
         # filter.c:441-453): per spur, a slow complex one-pole tracks the
@@ -715,6 +954,10 @@ class Engine:
                     bins.append(abs(shift))
             self.spur_bins = np.asarray(sorted(set(bins)), np.int32)
             self._spur_idx = torch.as_tensor(self.spur_bins.astype(np.int64), device=self.device)
+            if self.time_shards:
+                self._spur_idx_d = Sharded.replicate(self._spur_idx, mesh).shards
+            if self.digit is not None:
+                self._spur_plan = self.digit.spur_plan(self.spur_bins)
 
     @property
     def L(self) -> int:
@@ -726,8 +969,12 @@ class Engine:
 
     def init_state(self):
         """The carried state; an engine of B inputs carries [B, M-1] master
-        tails and [B, spurs] spur trackers."""
+        tails and [B, spurs] spur trackers. On a mesh, a tree of Sharded
+        leaves (shard_engine_tree); a column-layout engine carries its
+        master tail as [(N-L)/n2, n2] rows split over their columns."""
         mst = master_init(self.master, device=self.device)
+        if self.digit_cols:
+            mst["tail"] = mst["tail"].reshape(-1, self.digit.n2)
         lead = (self.n_inputs,) if self.n_inputs > 1 else ()
         mst["tail"] = mst["tail"].expand(lead + mst["tail"].shape).clone()
         st = {
@@ -739,6 +986,8 @@ class Engine:
         if self.spur_bins is not None:
             st["spurs"] = torch.zeros(lead + (len(self.spur_bins),), dtype=torch.complex64,
                                       device=self.device)
+        if self.mesh is not None:
+            st = shard_engine_tree(self, self.mesh, st)
         return st
 
     def init_params(self):
@@ -766,7 +1015,8 @@ class Engine:
         """Copy the per-channel host params a previous engine's commands
         tweaked into this one (the channel-table rebuild path): groups of
         the same name keep their leading rows. Returns this engine's fresh
-        device params, built from the adopted host mirrors."""
+        device params, built from the adopted host mirrors (placed on the
+        mesh, on a sharded engine)."""
         for name, g in self.groups.items():
             og = old.groups.get(name)
             if og is None:
@@ -785,7 +1035,7 @@ class Engine:
                 o = og.host["demod"].get(key)
                 if o is not None and arr.shape[1:] == o.shape[1:]:
                     arr[:n] = o[:n]
-            g.params = to_tensors(g.host, self.device)
+            g.params = g._place(g.host)
         return self.init_params()
 
     def master_step(self, mstate, block: torch.Tensor):
@@ -794,13 +1044,28 @@ class Engine:
         JAX package's padded tile layout), so that every row starts 16-byte
         aligned for the kernels' loads."""
         mstate, F = master_fft(self.master, mstate, block)
+        return mstate, self._pad_rows(F)
+
+    def _pad_rows(self, F: torch.Tensor) -> torch.Tensor:
         if self.n_inputs > 1:
-            F = torch.nn.functional.pad(F, (0, self.ld - self.master.bins))
-        return mstate, F
+            return torch.nn.functional.pad(F[..., :self.master.bins],
+                                           (0, self.ld - self.master.bins))
+        return F
+
+    def _frontend(self, block: torch.Tensor) -> torch.Tensor:
+        """Per-input mean input power of [..., L] blocks."""
+        p_in = block.real * block.real
+        if not self.master.real:
+            p_in = p_in + block.imag * block.imag
+        return p_in.mean(-1)
 
     def step(self, state, params, block: torch.Tensor):
         """One block: [L] input samples ([B, L] for an engine of B inputs)
         -> per-group audio + status info."""
+        if self.time_shards:
+            raise ValueError("a time-sharded engine runs D blocks a dispatch: use step_time")
+        if self.mesh is not None:
+            return self._step_mesh(state, params, block)
         host = state["host"]
         jobnum = host["jobnum"]
         multi = self.n_inputs > 1
@@ -821,14 +1086,127 @@ class Engine:
             outputs[name] = {"audio": audio, "info": info}
         # front-end metrics (frontend->if_power smoothing, rx888.c contract):
         # [B] per-input powers, [1] for one input
-        p_in = block.real * block.real
-        if not self.master.real:
-            p_in = p_in + block.imag * block.imag
-        outputs["_frontend"] = {"if_power": p_in.mean(-1).reshape(-1)}
+        outputs["_frontend"] = {"if_power": self._frontend(block).reshape(-1)}
         new_state = {"master": mstate, "groups": new_groups,
                      "host": {"jobnum": jobnum + 1, "groups": host_groups}}
         if spur_state is not None:
             new_state["spurs"] = spur_state
+        return new_state, outputs
+
+    def _step_mesh(self, state, params, block):
+        """step() of the channel-sharded engine. The master runs as the
+        distributed digit-order transform: the sample matrix (carried in
+        its column layout where the geometry allows) through two corner
+        turns; the spur trackers read and notch the digit rows; then, for
+        the groups of the tiled channelizer, the final corner turn and ONE
+        all-gather give every device the natural-order spectrum, which
+        kernels A and B read on each device's local channel rows. The other
+        groups read the digit rows through DigitSpectrum's gathers. The
+        outputs come back whole on the first device."""
+        from ..parallel.master import DigitSpectrum
+
+        mesh, dm, m = self.mesh, self.digit, self.master
+        dev0 = mesh.devices[0]
+        state = shard_engine_tree(self, mesh, state)
+        params = shard_engine_tree(self, mesh, params)
+        host = state["host"]
+        jobnum = host["jobnum"]
+        multi = self.n_inputs > 1
+        block = torch.as_tensor(block).to(dev0)
+        tail = state["master"]["tail"]
+        if self.digit_cols:
+            # tail carried as whole [*, n2] rows in the column layout: the
+            # concat is a row append, the first corner turn is skipped, and
+            # the new tail is a row slice that keeps the column split
+            n2 = dm.n2
+            blk = Sharded.split(block.reshape(block.shape[:-1] + (m.L // n2, n2)), mesh, -1)
+            xs = [torch.cat([t, b.to(t.dtype)], dim=-2) for t, b in zip(tail.shards, blk.shards)]
+            new_tail = Sharded([x[..., m.L // n2:, :].contiguous() for x in xs], -1, mesh)
+            Cs = dm.digit_rows(Sharded(xs, -1, mesh), cols_in=True)
+        else:
+            x = torch.cat([tail.shards[0], block.to(tail.dtype)], dim=-1)
+            new_tail = Sharded.replicate(x[..., m.L:].contiguous(), mesh)
+            Cs = dm.digit_rows(x)
+        jn = state["master"]["jobnum"].shards[0]
+        new_state = {"master": {"tail": new_tail, "jobnum": Sharded.replicate(jn + 1, mesh)}}
+        if self.spur_bins is not None:
+            vals = dm.take(Cs, self._spur_idx, scatter=False).shards[0]
+            prev = state["spurs"].shards[0]
+            track = prev + float(np.float32(0.01)) * (vals - prev)  # tracker ~10 s (filter.c:447)
+            new_state["spurs"] = Sharded.replicate(track, mesh)
+            dm.notch(Cs, self.spur_bins, new_state["spurs"], plan=self._spur_plan)
+        Ff = None
+        if any(g.tiled for g in self.groups.values()):
+            nat = all_gather(dm.natural(Cs), mesh, dim=-1)
+            ready: dict = {}  # one spectrum a distinct device
+            for f in nat:
+                if id(f) not in ready:
+                    ready[id(f)] = self._pad_rows(f) if multi else f[..., :m.bins]
+            Ff = [ready[id(f)] for f in nat]
+        spec = DigitSpectrum(dm, Cs, m.real)
+        new_groups, outputs, host_groups = {}, {}, {}
+        for name, g in self.groups.items():
+            blk_g = block[g.spec.input] if multi else block
+            gs, audio, info, host_groups[name] = g.step_mesh(
+                state["groups"][name], params[name], Ff, spec, blk_g, jobnum,
+                host["groups"][name])
+            new_groups[name] = gs
+            outputs[name] = {"audio": audio, "info": info}
+        outputs["_frontend"] = {"if_power": self._frontend(block).reshape(-1)}
+        new_state.update(groups=new_groups, host={"jobnum": jobnum + 1, "groups": host_groups})
+        return new_state, outputs
+
+    def step_time(self, state, params, blocks):
+        """D consecutive blocks in one dispatch, one block a mesh device: the
+        masters run at once with the (M-1)-sample halo passed to the next
+        device (parallel.timeshard, replacing the reference's mirror ring,
+        filter.c:245-264); the spur trackers carry across the D blocks;
+        each block's channelizer and N0 estimate run on its own device; the
+        stateful demodulator tails run block after block. Equals D step()
+        calls of a single-device engine.
+
+        blocks: [D, L] ([D, B, L] with B inputs), a tensor or a Sharded
+        split over blocks; outputs carry a leading [D] axis, whole on the
+        first device."""
+        from ..parallel.timeshard import batch_master_fft
+
+        if not self.time_shards:
+            raise ValueError("engine built without time_shards")
+        mesh, m = self.mesh, self.master
+        D, dev0 = mesh.size, mesh.devices[0]
+        state = shard_engine_tree(self, mesh, state)
+        params = shard_engine_tree(self, mesh, params)
+        host = state["host"]
+        jobnum0 = host["jobnum"]
+        multi = self.n_inputs > 1
+        tail, F = batch_master_fft(m, state["master"]["tail"], blocks, mesh, self.shard_axis)
+        Fs = [self._pad_rows(f[0]) for f in F.shards]
+        jn = state["master"]["jobnum"].shards[0]
+        new_state = {"master": {"tail": tail, "jobnum": Sharded.replicate(jn + D, mesh)}}
+        if self.spur_bins is not None:
+            # the trackers carry block after block (filter.c:447)
+            tr = state["spurs"].shards[0]
+            for d, f in enumerate(Fs):
+                idx = self._spur_idx_d[d]
+                vals = f.index_select(-1, idx).to(dev0)
+                tr = tr + float(np.float32(0.01)) * (vals - tr)
+                f.index_add_(-1, idx, -tr.to(f.device))
+            new_state["spurs"] = Sharded.replicate(tr, mesh)
+        if isinstance(blocks, Sharded):
+            blks = [b[0].to(dev0) for b in blocks.shards]
+        else:
+            blks = list(torch.as_tensor(blocks).to(dev0))
+        new_groups, outputs, host_groups = {}, {}, {}
+        for name, g in self.groups.items():
+            blk_g = [b[g.spec.input] for b in blks] if multi else blks
+            gs, audio, info, host_groups[name] = g.step_blocks(
+                state["groups"][name], params[name], Fs, blk_g, jobnum0, host["groups"][name])
+            new_groups[name] = gs
+            outputs[name] = {"audio": audio, "info": info}
+        # [D, B] per-input powers ([D, 1] for one input)
+        outputs["_frontend"] = {"if_power": torch.stack(
+            [self._frontend(b).reshape(-1) for b in blks])}
+        new_state.update(groups=new_groups, host={"jobnum": jobnum0 + D, "groups": host_groups})
         return new_state, outputs
 
 
@@ -839,7 +1217,8 @@ def migrate_state(old_state, new_state):
     [C_old] rows (master tail, AGC gains, squelch state, phase
     accumulators), new rows keep their initial values. The host mirrors
     carry too: the block counter, and each surviving group's warm-up and
-    frame counts."""
+    frame counts. Sharded trees (a mesh engine's) merge by their whole
+    values and come back placed as the new state's leaves."""
     def merge_leaf(old, new):
         if old.shape == new.shape:
             return old.to(new.dtype)
@@ -855,6 +1234,17 @@ def migrate_state(old_state, new_state):
         if isinstance(new, dict):
             return {k: merge(old.get(k), v) if isinstance(old, dict) else v
                     for k, v in new.items()}
+        if isinstance(new, Sharded):
+            if (isinstance(old, Sharded) and old.mesh is new.mesh and old.dim == new.dim
+                    and old.shape == new.shape and old.dtype == new.dtype):
+                return old
+            if not (torch.is_tensor(old) or isinstance(old, Sharded)):
+                return new
+            o = old.full() if isinstance(old, Sharded) else old
+            n = new.full()
+            return new.like(merge_leaf(o.to(n.device), n))
+        if isinstance(old, Sharded):
+            old = old.full(new.device)
         if not torch.is_tensor(old) or not torch.is_tensor(new):
             return new
         return merge_leaf(old, new)

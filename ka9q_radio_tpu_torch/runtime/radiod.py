@@ -24,8 +24,11 @@ runs it flat out, a live deployment paces on the source.
 A device error is never turned into a dropped block: any exception from the
 engine step, the device->host copy or a table rebuild propagates. Block
 drops count front-end read gaps only. Every demodulator of the JAX package
-runs, beamforming groups and several `[hardware]` inputs included; `mesh =
-yes` (the multi-GPU slice) raises at startup.
+runs, beamforming groups and several `[hardware]` inputs included. `mesh =
+yes` runs the sharded engine over every local CUDA device (or over a mesh
+the caller passes, such as four shards of one card): the distributed master
+FFT and each group split into C/D channel rows, or with `time-shards` D
+consecutive blocks a dispatch, one a device (Engine.step_time).
 """
 from __future__ import annotations
 
@@ -191,7 +194,8 @@ class _LazyGroupInfo:
 class Radiod:
     """The daemon on one device, over one or several front ends. device None
     means CUDA (and raises where there is none); the tests pass
-    device="cpu"."""
+    device="cpu". mesh: a parallel.Mesh to run the sharded engine on (the
+    config's `mesh = yes` builds make_mesh(), every local CUDA device)."""
 
     def __init__(
         self,
@@ -200,9 +204,23 @@ class Radiod:
         data_port: int = DEFAULT_RTP_PORT,
         status_port: int = DEFAULT_STAT_PORT,
         device=None,
+        mesh=None,
     ):
         self._t_start = time.monotonic()  # the cold start runs to the first block
         self.cfg = cfg
+        # [global] mesh = yes: the sharded engine over every local CUDA
+        # device (one card: a mesh of one); a caller's mesh takes its place
+        if mesh is None and str(cfg.options.get("mesh", "n")).lower() in (
+                "y", "yes", "true", "1", "on", "auto"):
+            from ..parallel import make_mesh
+
+            mesh = make_mesh()
+        self._mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.devices[0].type:
+                raise ValueError(f"device={device} with a mesh of {mesh.devices[0].type} "
+                                 "devices")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self._group_dests: dict[str, tuple] = {}  # per-section `data =` cache
         self._use_dns = _yes(cfg.options.get("dns", "n"))
@@ -211,19 +229,19 @@ class Radiod:
         from ..utils.parse import parse_frequency
         spurs = [parse_frequency(t, True) for t in str(cfg.options.get("spurs", "")).split()] or None
         self._spurs = spurs
-        if str(cfg.options.get("mesh", "n")).lower() in ("y", "yes", "true", "1", "on", "auto"):
-            raise NotImplementedError(
-                "mesh = yes (the sharded engine) is a later slice of the port, ROADMAP "
-                "Queue 1 item 5 (multi-GPU)")
         self._n_inputs = int(getattr(cfg, "n_inputs", 1))
         self._noise_every = int(cfg.options.get("noise-every", 4))
-        # [global] time-shards = D: D consecutive blocks per dispatch on the
-        # one device, with ONE device->host copy for all D (the same outputs
-        # as D single steps); `yes` = 8
+        # [global] time-shards = D: D consecutive blocks per dispatch, with
+        # ONE device->host copy for all D (the same outputs as D single
+        # steps); `yes` = 8. With a mesh, D = the mesh size and the blocks
+        # run one a device (Engine.step_time)
         self._time_shards = 0
         ts_opt = str(cfg.options.get("time-shards", "n")).lower()
         if ts_opt not in ("n", "no", "false", "0", "off", ""):
-            self._time_shards = int(ts_opt) if ts_opt.isdigit() else 8
+            if mesh is not None:
+                self._time_shards = mesh.size
+            else:
+                self._time_shards = int(ts_opt) if ts_opt.isdigit() else 8
         if self.device.type == "cuda":
             # the kernels build here, at startup, never inside the loop
             from ..ops.cuda_channelize import build
@@ -476,9 +494,11 @@ class Radiod:
     def _mk_step(self, eng) -> Any:
         """The per-dispatch function: the engine's step, or with
         `time-shards = D` a loop of D steps whose outputs stack to [D, ...]
-        (the same values as D single steps)."""
+        (the same values as D single steps), or on a mesh step_time."""
         if not self._time_shards:
             return eng.step
+        if self._mesh is not None:
+            return eng.step_time
         D = self._time_shards
 
         def step_many(state, prms, blocks):
@@ -847,9 +867,12 @@ class Radiod:
                   f"~{self._pool_need(gname)} spares; dyn-slots={self.dyn_spare})",
                   file=sys.stderr, flush=True)
         spare = self.dyn_spare
+        # under a mesh, group channel counts stay divisible by the device
+        # count: the added slots round up (the extras become spares)
+        mult = self._mult()
         _t0 = _time.monotonic()
         if gname not in self.engine.groups:
-            count = 1 + spare
+            count = -((1 + spare) // -mult) * mult
             ch0 = template.channels[0]
             spec = dataclasses.replace(template, name=gname,
                                        channels=(ch0,) * count)
@@ -858,7 +881,7 @@ class Radiod:
         else:
             g = self.engine.groups[gname]
             spec = g.spec
-            count = 1 + spare
+            count = -((g.C + 1 + spare) // -mult) * mult - g.C
             new_spec = dataclasses.replace(
                 spec, channels=spec.channels + (spec.channels[-1],) * count)
             self._rebuild([new_spec if s.name == gname else s for s in self.engine.specs])
@@ -1090,6 +1113,11 @@ class Radiod:
         if self.edges:
             self._refresh_edges()
 
+    def _mult(self) -> int:
+        """The multiple every group's channel count keeps: the mesh size
+        (a channel-sharded engine needs it), else 1."""
+        return self._mesh.size if self._mesh is not None else 1
+
     # ------------------------------------------------ background restock
     def _engine_kwargs(self) -> dict:
         return dict(
@@ -1100,7 +1128,8 @@ class Radiod:
             fft=str(self.cfg.options.get("fft", "auto")).lower(),
             fft_precision=str(self.cfg.options.get("fft-precision", "high")).lower(),
             use_matmul=_yes(self.cfg.options.get("matmul", "n")),
-            noise_every=self._noise_every, device=self.device)
+            noise_every=self._noise_every, device=self.device, mesh=self._mesh,
+            time_shards=self._time_shards if self._mesh is not None else 0)
 
     def _schedule_restock(self, gname: str):
         """Grow a dynamic class's pool of spare slots OFF the command path:
@@ -1125,7 +1154,9 @@ class Radiod:
         g = self.engine.groups[gname]
         # size the new pool to demand: at least dyn-slots, more when the
         # measured create rate x restock latency projects a deeper drain
-        count = max(self.dyn_spare, self._pool_need(gname), 1)
+        want = max(self.dyn_spare, self._pool_need(gname), 1)
+        mult = self._mult()
+        count = -((g.C + want) // -mult) * mult - g.C
         specs = [dataclasses.replace(s, channels=s.channels + (s.channels[-1],) * count)
                  if s.name == gname else s for s in self.engine.specs]
         kwargs = self._engine_kwargs()

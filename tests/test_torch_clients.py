@@ -413,6 +413,20 @@ def test_panel_digit_columns_and_windows():
     assert lines == jrender({JT(int(k)): v for k, v in fields.items()})
 
 
+def _read_lines(fd: int, n: int, timeout: float = 10.0) -> str:
+    """What arrives on fd until n whole lines have (a read may return part
+    of what the writer sent), or the deadline passes."""
+    import select
+
+    data, deadline = b"", time.monotonic() + timeout
+    while data.replace(b"\r", b"").count(b"\n") < n:
+        left = deadline - time.monotonic()
+        if left <= 0 or not select.select([fd], [], [], left)[0]:
+            break
+        data += os.read(fd, 4096)
+    return data.decode()
+
+
 def test_set_xcvr(tmp_path):
     """set-xcvr-torch: the SA818 programmer over a pty and the PTT keyer
     through an injectable sysfs root."""
@@ -426,7 +440,7 @@ def test_set_xcvr(tmp_path):
     mfd, sfd = pty.openpty()
     assert set_xcvr.main(["-f", str(conf)], gpio_root=str(tmp_path / "nogpio"),
                          serial_opener=lambda port: sfd) == 0
-    data = os.read(mfd, 4096).decode()
+    data = _read_lines(mfd, 5)
     os.close(mfd)
     lines = [l for l in data.replace("\r", "").split("\n") if l]
     assert lines[:5] == ["AT+DMOSETGROUP=1,147.3600,146.7600,0,2,123,5", "AT+DMOSETMIC=7,0",

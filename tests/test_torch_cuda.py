@@ -487,3 +487,45 @@ def test_two_input_daemon_on_cuda_matches_cpu(cuda):
         d = np.frombuffer(pa, ">i2").astype(np.int32) - np.frombuffer(pb, ">i2").astype(np.int32)
         assert np.abs(d).max(initial=0) <= 1
     np.testing.assert_allclose(rc.if_power_in, rh.if_power_in, rtol=1e-5)
+
+
+def test_per_shard_kernels_on_card(cuda):
+    """On a card: kernels A and B on each of 4 shards of cuda:0 (local C/4
+    rows of the all-gathered spectrum) against their plain versions, at the
+    tolerances of tests/test_torch_cuda.py (A < 3e-5 of the peak; B's keys
+    exact, N0 rtol 2e-5), and one launch of each a shard and a block."""
+    import ka9q_radio_tpu_torch.runtime as trt
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.filterbank import tiled_channelize
+    from ka9q_radio_tpu_torch.ops.noise import estimate_noise_keys, gather_noise_bins
+    from ka9q_radio_tpu_torch.parallel import make_mesh
+    from ka9q_radio_tpu_torch.parallel.sharding import local_tree
+
+    FSK = 2_048_000
+    freqs = np.linspace(0.05 * FSK, 0.45 * FSK, 512)
+    mesh = make_mesh([torch.device("cuda", 0)] * 4)
+    em = trt.Engine(samprate=FSK, real=True, mesh=mesh, groups=[trt.GroupSpec(
+        name="hf", demod="linear", samprate=8_000,
+        channels=tuple(trt.ChannelSpec(freq=float(f), low=50.0, high=2_700.0) for f in freqs))])
+    g, m, p = em.groups["hf"], em.master, em.init_params()["hf"]
+    F = torch.randn(m.bins, dtype=torch.complex64, device="cuda")
+    for d in range(4):
+        lp = local_tree(p, d)
+        got = cc.cuda_channelize(F, lp["resp_tiles"], lp["tile_lo"], lp["slope"], lp["shifts"],
+                                 g.lcs[d]["tile_E"], g.n_bins, g.olen, m.real, m.N,
+                                 E_op=g.lcs[d]["tile_op"])
+        want = tiled_channelize(F, lp["resp_tiles"], lp["tile_lo"], lp["slope"], lp["shifts"],
+                                g.lcs[d]["tile_E"], g.n_bins, g.olen, m.real, m.N)
+        assert got.shape == (128, g.olen)
+        assert float((got - want).abs().max()) < 3e-5 * float(want.abs().max())
+        n0, keys = cc.cuda_noise_est(F, lp["shifts"], g.noise_bins, m.real, m.N, em.samprate)
+        n0_t, keys_t = estimate_noise_keys(
+            gather_noise_bins(F, lp["shifts"], g.noise_bins, m.real, m.N), m.bins, em.samprate)
+        assert torch.equal(keys, keys_t)
+        assert float(((n0 - n0_t).abs() / n0_t.abs()).max()) <= 2e-5
+    cc.reset_launches()
+    st = em.init_state()
+    st, out = em.step(st, em.init_params(), torch.randn(em.L, device="cuda"))
+    torch.cuda.synchronize()
+    assert cc.launches["channelize"] == 4 and cc.launches["noise_est"] == 4
+    assert bool(torch.isfinite(out["hf"]["audio"]).all())

@@ -1,6 +1,7 @@
 """The port's daemon runs the example configs on the CPU: `radiod-torch
 --device cpu --no-network --flat-out --blocks 50` on every example but the
-mesh one (a later slice), with each network A/D front end (`device = rtp`)
+mesh one (129.6 Msps over every local CUDA device: chip_smoke.py's mesh
+phase runs it on the card), with each network A/D front end (`device = rtp`)
 replaced by a sig_gen at the same rate and centre: a carrier on one channel
 that has no CTCSS tone, FM- or AM-modulated as its mode wants, over noise.
 The daemon must start and run every block, and the carrier's channel must

@@ -33,6 +33,43 @@ def _run(eng, blocks):
     return s, out
 
 
+def _run_recording(eng, blocks):
+    """_run, keeping each block's master spectra as eng's master FFT gave
+    them (before the spur notch, which works on its own copy)."""
+    spectra, master_step = [], eng.master_step
+
+    def recording(mstate, block):
+        mstate, F = master_step(mstate, block)
+        spectra.append(F.clone())
+        return mstate, F
+
+    eng.master_step = recording
+    try:
+        s, out = _run(eng, blocks)
+    finally:
+        del eng.master_step
+    return s, out, spectra
+
+
+def _run_on(eng, blocks, spectra):
+    """_run, with eng's master spectra replaced block by block by `spectra`:
+    a single-input reference then sees the very transform the engine of
+    several inputs computed. A batched CPU FFT ([B, N]) and B single ones
+    differ by a few 1e-4 (absolute, on unit-variance input) with the batch
+    and the thread count, which would move N0 by more than its 1e-5."""
+    feed, master_step = iter(spectra), eng.master_step
+
+    def fed(mstate, block):
+        mstate, _ = master_step(mstate, block)
+        return mstate, next(feed).clone()
+
+    eng.master_step = fed
+    try:
+        return _run(eng, blocks)
+    finally:
+        del eng.master_step
+
+
 def _assert_matches_single(out, name, rows, single_out, single_name):
     """A multi-input engine's rows against a single-input engine's group:
     audio rtol 2e-5 / atol 2e-6, N0 rtol 1e-5 (tests/test_multife.py's bounds)."""
@@ -44,8 +81,9 @@ def _assert_matches_single(out, name, rows, single_out, single_name):
 
 def test_multi_input_matches_single_and_jax():
     """A 3-input engine, one group per input, spur notches on every input:
-    each group as a single-input engine fed its stream alone, and the whole
-    engine as JAX's, block by block; per-input IF power is [3]."""
+    each group as a single-input engine fed its stream alone (and its row of
+    the batched master spectrum), and the whole engine as JAX's, block by
+    block; per-input IF power is [3]."""
     def groups(rt):
         return [rt.GroupSpec(name=f"lin{b}", demod="linear", samprate=16_000,
                              channels=_chans(rt), input=b) for b in range(3)]
@@ -55,14 +93,14 @@ def test_multi_input_matches_single_and_jax():
     je = jrt.Engine(samprate=CFS, real=False, groups=groups(jrt), n_inputs=3, spurs=[100e3],
                     fft="monolithic")
     blocks = multi_blocks(6, 3, te.L, seed=1)
-    st, out = _run(te, blocks)
+    st, out, spectra = _run_recording(te, blocks)
     assert tuple(st["master"]["tail"].shape) == (3, te.master.M - 1)
     assert tuple(st["spurs"].shape) == (3, len(te.spur_bins))
     assert tuple(out["_frontend"]["if_power"].shape) == (3,)
     for b in range(3):
         e1 = trt.Engine(samprate=CFS, real=False, spurs=[100e3], device="cpu", groups=[
             trt.GroupSpec(name=f"lin{b}", demod="linear", samprate=16_000, channels=_chans(trt))])
-        _, o1 = _run(e1, blocks[:, b])
+        _, o1 = _run_on(e1, blocks[:, b], [F[b, :e1.master.bins] for F in spectra])
         _assert_matches_single(out, f"lin{b}", slice(None), o1, f"lin{b}")
     step_against_jax(je, te, blocks)
 
@@ -73,8 +111,9 @@ def test_one_group_spanning_inputs(real):
     complex master (the per-input offset in the gathers), and on a real one
     (2.048 Msps: m_bins 25,601 is odd, so each input's row is padded to
     whole tiles for kernel A's and B's loads) with every input's twin of a
-    carrier channel. Each input's rows equal a single-input engine's; the
-    whole engine equals JAX's; only the carrier's own input hears it."""
+    carrier channel. Each input's rows equal a single-input engine's fed
+    that input's row of the batched master spectrum; the whole engine equals
+    JAX's; only the carrier's own input hears it."""
     B, per = 3, 4
     fs = 2_048_000 if real else CFS
     if real:
@@ -101,11 +140,11 @@ def test_one_group_spanning_inputs(real):
     g = te.groups["g"]
     assert g.tiled and list(g.inputs) == list(np.repeat(np.arange(B), per))
     assert te.ld % 128 == 0 and (not real or te.master.bins % 2 == 1)
-    _, out = _run(te, blocks)
+    _, out, spectra = _run_recording(te, blocks)
     for b in range(B):
         e1 = trt.Engine(samprate=fs, real=real, spurs=[100e3], device="cpu", groups=[
             trt.GroupSpec(name="g", demod="linear", samprate=16_000, channels=single(trt))])
-        _, o1 = _run(e1, blocks[:, b])
+        _, o1 = _run_on(e1, blocks[:, b], [F[b, :e1.master.bins] for F in spectra])
         _assert_matches_single(out, "g", slice(b * per, (b + 1) * per), o1, "g")
     to, _ = step_against_jax(je, te, blocks)
     if real:

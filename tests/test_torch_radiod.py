@@ -319,9 +319,14 @@ def test_mode_command_switches_channel(fields, demod):
 
 # the id keeps the case's name from when the refusal pointed at ROADMAP item 17
 @pytest.mark.parametrize("edit,match", [(("[global]", "[global]\nmesh = yes"),
-                                         "Queue 1 item 5")], ids=["edit0-item 17"])
-def test_unported_at_startup_raises(edit, match):
-    with pytest.raises(NotImplementedError, match=match):
+                                         "every local CUDA device")], ids=["edit0-item 17"])
+def test_unported_at_startup_raises(edit, match, monkeypatch):
+    """`mesh = yes` builds its mesh over every local CUDA device: on a host
+    without one the daemon refuses at startup rather than run the sharded
+    engine (or the single-device one) on the CPU; a CPU mesh is only ever
+    the caller's own (Radiod(mesh=...), tests/test_torch_timeshard.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=match):
         tradiod.Radiod(tload(CONF.replace(*edit)), use_network=False, device="cpu")
 
 
