@@ -8,13 +8,14 @@ and the CUDA toolkit:
 
 It builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the rx888 shapes and at the hf32000 shapes (32,000
-channels, from tile params built directly), times each (profiler device
-time, beside its bound, its plain version and one PyTorch call as a
-yardstick), drives the rx888 configuration (129.6 Msps real input, 1,000
-SSB channels at 12 kHz with SNR squelch, a 16-channel wide spectrum sweep)
-through Engine.step on a known-answer scene, times 64 distinct random
-blocks, and splits the block time by stage and by kernel (CUDA events,
-torch.profiler), with each kernel's device time inside the step. Then it
+channels, from tile params built directly), times each (CUDA events
+around a CUDA graph of n calls, beside its bound, its plain version and
+one PyTorch call as a yardstick, all timed alike), drives the rx888
+configuration (129.6 Msps real input, 1,000 SSB channels at 12 kHz with
+SNR squelch, a 16-channel wide spectrum sweep) through Engine.step on a
+known-answer scene, times 64 distinct random blocks, and splits the block
+time by stage and by kernel (CUDA events, torch.profiler), with each
+kernel's device time inside the step. Then it
 runs the daemon (Radiod) on the card at full width: the
 examples/radiod@rx888-wspr.conf HF farm (about 32,700 usb channels with SNR
 squelch, egress-slots 512, time-shards 8, the native edge) fed by a
@@ -46,9 +47,9 @@ then its CLI over 127.0.0.1. Before the clients, the sharded engine (the
 process over a list of devices, the corner turns and gathers as copies on
 the card): the flagship parity drive (sharded against single-device over
 10 blocks with a retune and a table grow), kernels A and B on every shard's
-local rows against their plain versions and in a profiler trace (D
-launches of each a block), step_time at D = 8 (the halo tail exact, the
-outputs against 8 steps), radiod-torch with `mesh = yes` on
+local rows against their plain versions and by the port's launch
+counters (D launches of each a block), step_time at D = 8 (the halo tail
+exact, the outputs against 8 steps), radiod-torch with `mesh = yes` on
 examples/radiod@mesh-rx888.conf twice (its own make_mesh(), and 4 shards),
 and the sharded step's ms beside the single-device step's. It checks no
 peer copy between cards and no shards running at once. Then a mesh of two
@@ -57,12 +58,28 @@ processes (the `multihost` phase): this script started twice as
 torch.distributed over gloo (the pieces that cross processes staged
 through host memory; NCCL refuses two processes on one card): the flagship
 parity drive on each process's rows, the time-shard halo across the
-process boundary, A and B 2 times a block in each process (counts and a
-trace) and against their plain versions on its rows, 8 timed steps with
+process boundary, A and B 2 times a block in each process (by the
+counters) and against their plain versions on its rows, 8 timed steps with
 the bytes that cross processes. Then the `churn` phase:
 tools/churn_soak_torch.py on the card for 45 s with 4 spares a class (no
 foreground rebuild, no dropped block, RSS and device memory flat, at least
-one background restock swapped in). Each phase prints one JSON
+one background restock swapped in). Last, the `ingest` phase, the RTP A/D
+front end on the card: the raw loopback ceiling (tools/bench_ingest_torch.py
+raw: the native paced sender ingest_blast into the native reader, 8,192- and
+704-frame packets, every frame held to the sender's ramp), the copy of one
+flagship dispatch to the card, then examples/radiod@rx888-wspr.conf with its
+[adc] stream fed by ingest_blast at 129.6 Msps and examples/radiod@2m.conf's
+complex 5.12 Msps [vhf-feed] (the first timed dispatch's block on the card
+equal to the ramp bit for bit, A and B by their counters, finite outputs,
+the channels' RTP audio, the frames sent = read + dropped + still
+buffered; achieved Msps, margin, block times and the host split reported).
+
+Kernel times come from CUDA events around a CUDA graph of n calls (a call
+that cannot be captured: n back-to-back calls, named in its phase's line),
+launch counts from the port's counters (`launches[...]`), never from a
+trace. torch.profiler (CUDA activity alone) gives the step and daemon
+breakdowns only; a trace that kept fewer kernel events than the counters
+saw is a note in that line, not a failure. Each phase prints one JSON
 line; the kernels line and the card's `nvidia-smi` name and power limit
 come before the last line, which is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Long logs
@@ -100,6 +117,9 @@ def fail(msg: str) -> None:
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line says how its event_ms calls were timed."""
+    if "phase" in obj and (TIMING["graph"] or TIMING["back_to_back"]):
+        obj = {**obj, **timing_note()}
     print(json.dumps(obj), flush=True)
 
 
@@ -136,30 +156,75 @@ def time_ms(fn, n: int = 30, warm: int = 3) -> float:
     return ts[n // 2]
 
 
-def device_ms(fn, n: int = 20, warm_s: float = 0.05, name: str = "") -> float:
-    """Device time of one call of fn: the summed durations of the kernels and
-    copies it launches whose name holds `name` (all of them by default; a
-    name leaves out others, such as an L2 flush), from a torch.profiler
-    (CUPTI) trace of n calls, over n, after warm_s seconds of calls (the
-    card's clocks rise under load). Host launch overhead is not in it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# how event_ms timed each call (a CUDA graph, or back-to-back calls where a
+# call cannot be captured) and the profiler sessions of the run, for the
+# kernels line
+TIMING: dict = {"graph": 0, "back_to_back": 0, "uncaptured": []}
+PROFILER = {"sessions": 0}
 
-    t_end = time.perf_counter() + warm_s
-    while time.perf_counter() < t_end:
-        fn()
-        torch.cuda.synchronize()
-    for attempt in range(3):  # a profiler session now and then records nothing
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+def event_ms(fn, n: int = 20, warm: int = 3, what: str = "") -> float:
+    """Device ms of one call of fn: n calls captured in one CUDA graph,
+    replayed between two CUDA events, over n (the launches' host gaps are
+    not in it). A call that cannot be captured (a host sync, a pageable
+    copy) is timed as n back-to-back calls between the two events instead
+    (its host launch gaps in it), and `what` goes to TIMING["uncaptured"]."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture (cuFFT plans, the allocator)
+        for _ in range(warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # the capture by hand (not torch.cuda.graph): a call that breaks it
+    # still ends the capture and leaves the capture stream
+    graph, err = torch.cuda.CUDAGraph(), None
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
             for _ in range(n):
                 fn()
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and name in ev.name]
-        if evs:
-            return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / n
-        print(f"chip_smoke: profiler session {attempt + 1} recorded no device time "
-              f"(kernel name {name!r})", file=sys.stderr, flush=True)
-    fail(f"the profiler recorded no device time (kernel name {name!r})")
+        except Exception as e:  # noqa: BLE001 - the call is timed without a graph below
+            err = e
+        try:
+            graph.capture_end()
+        except Exception as e:  # noqa: BLE001
+            err = err or e
+    torch.cuda.synchronize()
+    if err is not None:
+        graph = None
+        TIMING["uncaptured"].append(f"{what or getattr(fn, '__name__', '?')}: "
+                                    f"{type(err).__name__}: {str(err)[:120]}")
+    if graph is not None:
+        graph.replay()
+        torch.cuda.synchronize()
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        TIMING["graph"] += 1
+        return e0.elapsed_time(e1) / n
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    TIMING["back_to_back"] += 1
+    return e0.elapsed_time(e1) / n
+
+
+def timing_note() -> dict:
+    """How this phase's event_ms calls were timed (then cleared): for a
+    phase's JSON line."""
+    note = {"timing": "CUDA events around a CUDA graph of n calls, over n",
+            "graph_timed": TIMING["graph"], "back_to_back_timed": TIMING["back_to_back"],
+            "uncaptured": TIMING["uncaptured"]}
+    TIMING.update(graph=0, back_to_back=0, uncaptured=[])
+    return note
 
 
 def bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
@@ -294,16 +359,18 @@ def check_kernel_a(eng, params, F, group: str) -> dict:
         Fp = F.reshape(-1, _CTILE)
         flat = rows + g.inputs.astype(np.int64)[:, None] * (F.shape[-1] // _CTILE)
     x = Fp[torch.as_tensor(flat, device=F.device)].reshape(C, S) * p["resp_tiles"]
-    lib_a = device_ms(lambda: torch.matmul(x, g.tile_E))
+    lib_a = event_ms(lambda: torch.matmul(x, g.tile_E), what="torch.matmul, A's yardstick")
     nb_a, nops_a = counts_a(C, S, g.n_bins, olen, len(np.unique(flat)))
     # A alone after a 64 MB write has evicted L2 (E's operand, the
     # responses, F): how much of its in-step time L2 misses explain
     flush = torch.empty(16 << 20, dtype=torch.float32, device=F.device)
-    cold_a = device_ms(lambda: (flush.fill_(1.0), kern_a()), name="channelize_kernel")
+    cold_a = (event_ms(lambda: (flush.fill_(1.0), kern_a()), what="L2 flush + channelize")
+              - event_ms(lambda: flush.fill_(1.0), what="L2 flush"))
     return {"name": "channelize", "route": "cuda", "source": cc.SOURCES["channelize"],
             "replaces": cc.REPLACES["channelize"], "launches": 0, "max_abs_err": err_a,
             "err_bound": 3e-5 * scale_a, "max_abs_err_vs_f64_sum": err_a64,
-            "ms": device_ms(kern_a), "plain_ms": device_ms(plain_a), "call_ms": time_ms(kern_a),
+            "ms": event_ms(kern_a, what="channelize"),
+            "plain_ms": event_ms(plain_a, what="tiled_channelize"), "call_ms": time_ms(kern_a),
             "ms_cold_l2": cold_a, **bound_a(nb_a, nops_a), "library_ms": lib_a,
             "library_call": "torch.matmul(gathered x [C, S] c64, E [S, olen] c64)",
             "bytes": nb_a, "ops": nops_a,
@@ -341,11 +408,13 @@ def check_kernel_b(eng, params, F, group: str) -> dict:
                                               F.shape[-1])))
     energies = gather_noise_bins(F, p["shifts"], g.noise_bins, m.real, m.N, inp)
     i_stat = int(np.floor(0.10 * (W - 1)))
-    lib_b = device_ms(lambda: torch.kthvalue(energies, i_stat + 1, dim=-1))
+    lib_b = event_ms(lambda: torch.kthvalue(energies, i_stat + 1, dim=-1),
+                     what="torch.kthvalue, B's yardstick")
     return {"name": "noise_est", "route": "cuda", "source": cc.SOURCES["noise_est"],
             "replaces": cc.REPLACES["noise_est"], "launches": 0,
             "max_abs_err": float((n0_k - n0_t).abs().max()), "max_rel_err": rel_b,
-            "keys_equal": True, "ms": device_ms(kern_b), "plain_ms": device_ms(plain_b),
+            "keys_equal": True, "ms": event_ms(kern_b, what="noise_est"),
+            "plain_ms": event_ms(plain_b, what="estimate_noise_keys"),
             "call_ms": time_ms(kern_b), **bb, "library_ms": lib_b,
             "library_call": "torch.kthvalue(gathered |F|^2 [C, W], i + 1): statistic i only",
             "shape": {"C": C, "W": W,
@@ -404,8 +473,10 @@ def check_hf32000(device, C: int = 32_000) -> dict:
     Fp = torch.nn.functional.pad(F, (0, nrows * _CTILE - m.bins)).reshape(nrows, _CTILE)
     x = Fp[torch.as_tensor(rows, device=device)].reshape(C, S) * rt_d
     nb_a, nops_a = counts_a(C, S, n_bins, olen, len(np.unique(rows)))
-    a = {"C": C, "max_abs_err": err_a, "err_bound": 3e-5 * scale_a, "ms": device_ms(kern_a),
-         "plain_ms": device_ms(plain_a), "library_ms": device_ms(lambda: torch.matmul(x, E)),
+    a = {"C": C, "max_abs_err": err_a, "err_bound": 3e-5 * scale_a,
+         "ms": event_ms(kern_a, what="channelize"),
+         "plain_ms": event_ms(plain_a, n=5, what="tiled_channelize"),
+         "library_ms": event_ms(lambda: torch.matmul(x, E), what="torch.matmul, A's yardstick"),
          **bound_a(nb_a, nops_a), "bytes": nb_a, "ops": nops_a}
     del x, got, want
 
@@ -422,9 +493,11 @@ def check_hf32000(device, C: int = 32_000) -> dict:
     bb = bound_b(*counts_b(C, W, len(np.unique(start[:, None] + np.arange(W)))))
     energies = gather_noise_bins(F, sh_d, W, True, m.N)
     i_stat = int(np.floor(0.10 * (W - 1)))
-    b = {"C": C, "keys_equal": True, "max_rel_err": rel_b, "ms": device_ms(kern_b),
-         "plain_ms": device_ms(plain_b, n=5),
-         "library_ms": device_ms(lambda: torch.kthvalue(energies, i_stat + 1, dim=-1)), **bb}
+    b = {"C": C, "keys_equal": True, "max_rel_err": rel_b,
+         "ms": event_ms(kern_b, what="noise_est"),
+         "plain_ms": event_ms(plain_b, n=5, what="estimate_noise_keys"),
+         "library_ms": event_ms(lambda: torch.kthvalue(energies, i_stat + 1, dim=-1),
+                                what="torch.kthvalue, B's yardstick"), **bb}
     return {"channelize": a, "noise_est": b}
 
 
@@ -612,9 +685,10 @@ def timed_run(eng, params, device, n0: float = N0_SCENE, nblocks: int = 64, warm
 
 def stage_split(eng, params, device) -> dict:
     """Each stage of one steady rx888 block timed alone, as device time
-    (profiler) and as wall time on the card's clock (CUDA events, launch
-    overhead included): master FFT, kernel A, kernel B, the hf group's
-    demod tail (N0 EMA, fine tune, AGC, squelch), the sweep."""
+    (event_ms: a CUDA graph of the stage) and as wall time on the card's
+    clock (CUDA events, launch overhead included): master FFT, kernel A,
+    kernel B, the hf group's demod tail (N0 EMA, fine tune, AGC, squelch),
+    the sweep."""
     from ka9q_radio_tpu_torch.ops.filterbank import master_fft
 
     gen = torch.Generator(device=device).manual_seed(3)
@@ -633,7 +707,7 @@ def stage_split(eng, params, device) -> dict:
         "demod_tail": lambda: g._demod_tail(st["groups"]["hf"], p, bb, n0, True, False),
         "sweep": lambda: sw.step(st["groups"]["sweep"], params["sweep"], F, blk, 8, steady),
     }
-    return {"stage_device_ms": {k: device_ms(f) for k, f in stages.items()},
+    return {"stage_device_ms": {k: event_ms(f, what=k) for k, f in stages.items()},
             "stage_wall_ms": {k: time_ms(f) for k, f in stages.items()}}
 
 
@@ -642,23 +716,34 @@ RECUR_NAMES = (("pll_scan", "pll_scan_kernel"), ("goertzel", "goertzel_kernel"))
 
 
 def traced(body, what: str):
-    """body() under torch.profiler (CUDA activity): (the profile, its device
-    events, body's wall ms). A profiler session now and then records
-    nothing; it is retried twice."""
+    """body() under torch.profiler, CUDA activity alone: (the profile, its
+    device events, body's wall ms, a note). The note gives the kernel events
+    the trace kept beside the launches the port's counters saw in body; a
+    trace that kept fewer is a measurement note, never a failure (a session
+    now and then loses events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+
+    torch.cuda.synchronize()
+    before = dict(cc.launches)
+    PROFILER["sessions"] += 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        body()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            body()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kern = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-        if kern:
-            return prof, kern, wall
-    fail(f"{what}: the profiler recorded no device time")
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    expected = {k: cc.launches[k] - before[k] for k in before}
+    kept = {name: sum(1 for ev in kern if sub in ev.name)
+            for name, sub in KERNEL_NAMES + RECUR_NAMES}
+    note = {"trace_events": len(kern), "trace_kept": kept, "trace_expected": expected,
+            "trace_complete": all(kept[k] >= expected[k] for k in kept)}
+    if not kern or not note["trace_complete"]:
+        print(f"chip_smoke: {what}: the trace kept {kept} kernel events of the {expected} "
+              "launches counted (a measurement note)", file=sys.stderr, flush=True)
+    return prof, kern, wall, note
 
 
 def per_launch_ms(kern, names) -> dict:
@@ -688,7 +773,7 @@ def device_busy(eng, params, device, out_dir: Path, n0: float = N0_SCENE, nblock
         for b in range(8, 8 + nblocks):
             state, _ = eng.step(state, params, blocks[b])
 
-    prof, kern, _ = traced(body, trace)
+    prof, kern, _, note = traced(body, trace)
     prof.export_chrome_trace(str(out_dir / trace))
     by_name: dict[str, float] = {}
     for ev in kern:
@@ -697,7 +782,7 @@ def device_busy(eng, params, device, out_dir: Path, n0: float = N0_SCENE, nblock
     return {"blocks": nblocks, "kernels_per_block": len(kern) / nblocks,
             "busy_ms_per_block": sum(by_name.values()),
             "kernel_in_step_ms_per_launch": per_launch_ms(kern, KERNEL_NAMES),
-            "top_ms_per_block": [[name[:80], ms] for name, ms in top]}
+            "top_ms_per_block": [[name[:80], ms] for name, ms in top], **note}
 
 
 WSPR_CONF = ROOT / "examples" / "radiod@rx888-wspr.conf"
@@ -956,12 +1041,13 @@ def run_daemon(card: str, device) -> tuple[dict, dict, object]:
 
     # each kernel's device time inside the daemon, with those channels open
     # (profiler, two dispatches)
-    _, kern, wall = traced(lambda: [rd.step_block() for _ in range(2)], "daemon")
+    _, kern, wall, note = traced(lambda: [rd.step_block() for _ in range(2)], "daemon")
     busy = sum(ev.time_range.elapsed_us() for ev in kern) / 1e3
     in_daemon = per_launch_ms(kern, KERNEL_NAMES)
     out.update({"profiled_blocks": 2 * D, "device_busy_ms_per_block": busy / (2 * D),
                 "wall_ms_per_block_profiled": wall / (2 * D),
-                "device_idle_share": 1.0 - busy / wall, "kernel_in_daemon_ms": in_daemon})
+                "device_idle_share": 1.0 - busy / wall, "kernel_in_daemon_ms": in_daemon,
+                **note})
     rx.close()  # the clients phase's pcmrecord-torch takes the data port
     rd._siggen = carrier_gen  # and records the carrier alone
 
@@ -1101,7 +1187,8 @@ def check_recurrences(args: dict) -> dict:
             "replaces": cc.REPLACES["pll_scan"], "launches": 0, "max_abs_err": err_p,
             "err_bound": 1e-5 * float(mp.abs().max()), "vco_max_lsb": dv,
             "sums_max_rel_err": max(rel_s, rel_n), "bit_exact": bit_p,
-            "ms": device_ms(kern_p), "plain_ms": device_ms(plain_p, n=2, warm_s=0.0),
+            "ms": event_ms(kern_p, what="pll_scan"),
+            "plain_ms": event_ms(plain_p, n=2, warm=1, what="pll_scan_plain"),
             "plain_call_ms": time_ms(plain_p, n=3, warm=1), "call_ms": time_ms(kern_p),
             "bound_ms": b_p, "bound_by": by_p, "bytes": nb_p, "ops": C * T * PLL_OPS,
             "ops_counted": f"{PLL_OPS} FP32 operations a sample, sincosf and atan2f one each",
@@ -1111,7 +1198,8 @@ def check_recurrences(args: dict) -> dict:
             "replaces": cc.REPLACES["goertzel"], "launches": 0, "max_abs_err": err_g,
             "err_bound": 1e-5 * scale_g,
             "bit_exact": all(torch.equal(got[k], want[k]) for k in got),
-            "ms": device_ms(kern_g), "plain_ms": device_ms(plain_g, n=2, warm_s=0.0),
+            "ms": event_ms(kern_g, what="goertzel"),
+            "plain_ms": event_ms(plain_g, n=2, warm=1, what="goertzel_update_block"),
             "plain_call_ms": time_ms(plain_g, n=3, warm=1), "call_ms": time_ms(kern_g),
             "bound_ms": b_g, "bound_by": by_g, "bytes": nb_g, "ops": 3 * C2 * T2,
             "library_ms": None, "shape": {"C": C2, "T": T2}},
@@ -1422,8 +1510,9 @@ def vhf_daemon(device) -> tuple[dict, dict]:
                   "samples": int(ai.shape[0]), "columns": cols}
     # each kernel's device time a launch inside 4 blocks: the repeaters'
     # Goertzel and the sam channel's PLL run in every one
-    _, kern, _ = traced(lambda: run(4), "vhf_daemon")
+    _, kern, _, note = traced(lambda: run(4), "vhf_daemon")
     out["kernel_in_daemon_ms"] = per_launch_ms(kern, KERNEL_NAMES + RECUR_NAMES)
+    out["trace"] = note
     # a new spectrum channel at 50 Hz, polled: the carrier's bin
     cmd({T.OUTPUT_SSRC: 9001, T.COMMAND_TAG: 3, T.PRESET: "spectrum",
          T.RADIO_FREQUENCY: VHF_SPEC, T.RESOLUTION_BW: 50.0, T.BIN_COUNT: 64})
@@ -1592,7 +1681,7 @@ def beam_scene(rt, device) -> dict:
                              "due_blocks": due})
     g, prm = eng.groups["beam"], params["beam"]
     _, F = eng.master_step(eng.init_state()["master"], x)
-    out["channelize_beam_ms"] = device_ms(lambda: g._channelize(prm, F))
+    out["channelize_beam_ms"] = event_ms(lambda: g._channelize(prm, F), what="beam channelize")
     out["kernels"] = {k["name"]: k for k in check_kernels(eng, params, F, "beam")}
     return out
 
@@ -1902,9 +1991,9 @@ def run_stereod(device) -> dict:
         outs.append(got.numpy())
     peak, sep = separation(np.concatenate(outs), 48_000.0)
     on_card = blocks[-1].to(device)
-    dev_ms = device_ms(lambda: card_dec.decode(on_card))
+    dev_ms = event_ms(lambda: card_dec.decode(on_card), what="stereod decode")
     call_ms = time_ms(lambda: card_dec.decode(blocks[-1].to(device))[0].cpu())
-    _, ev, _ = traced(lambda: [card_dec.decode(on_card) for _ in range(4)], "stereod")
+    _, ev, _, note = traced(lambda: [card_dec.decode(on_card) for _ in range(4)], "stereod")
     copies = sum(1 for e in ev if "memcpy" in e.name.lower() or "memset" in e.name.lower())
 
     # the CLI on the card over 127.0.0.1: 700-sample packets straddle blocks
@@ -1942,6 +2031,7 @@ def run_stereod(device) -> dict:
             "separation_db": sep, "device_ms_per_block": dev_ms,
             "call_ms_per_block": call_ms,
             "device_ops_per_block": (len(ev) - copies) / 4, "copies_per_block": copies / 4,
+            "trace": note,
             "cli": {"packets_in": -(-comp.size // 700), "packets_out": len(pkts),
                     "payload_types": sorted({h.type for h, _ in hdrs}), "frames": audio.shape[0],
                     "l_peak_hz": cli_peak, "separation_db": cli_sep, "wall_s": cli_s}}
@@ -2021,8 +2111,8 @@ def mesh_step_check(em, device, n: int = 4) -> dict:
     """The main path of the sharded engine: n steps with the kernels' counts
     set to 0 just before and read just after (A and B launch D times a
     block, B on its cadence; on a mesh of several processes, this process's
-    shards' count), then one more step under the profiler, whose trace must
-    hold D launches of each on the shards' C/D rows."""
+    shards' count), then one more step, one that re-estimates N0, counted
+    alone: D launches of each on the shards' C/D rows."""
     from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
 
     D, params = len(em.mesh.local), em.init_params()
@@ -2042,12 +2132,14 @@ def mesh_step_check(em, device, n: int = 4) -> dict:
     if not outputs_finite(out):
         fail(f"mesh D={D}: non-finite outputs")
     if st["host"]["jobnum"] % em.noise_every:
-        fail(f"mesh D={D}: the traced block is not one that re-estimates N0")
-    _, kern, _ = traced(lambda: em.step(st, params, blocks[4 + n]), f"mesh D={D} step")
-    in_trace = {name: sum(1 for ev in kern if sub in ev.name) for name, sub in KERNEL_NAMES}
-    if in_trace != {"channelize": D, "noise_est": D}:
-        fail(f"mesh D={D}: the traced step launched {in_trace}, want {D} of each")
-    return {"blocks": n, "due_blocks": due, "launches": launches, "traced_launches": in_trace,
+        fail(f"mesh D={D}: the due step is not one that re-estimates N0")
+    cc.reset_launches()
+    em.step(st, params, blocks[4 + n])
+    torch.cuda.synchronize()
+    one = {k: cc.launches[k] for k in ("channelize", "noise_est")}
+    if one != {"channelize": D, "noise_est": D}:
+        fail(f"mesh D={D}: the due step launched {one}, want {D} of each")
+    return {"blocks": n, "due_blocks": due, "launches": launches, "due_step_launches": one,
             "local_C": em.groups["hf"].C // em.mesh.size}
 
 
@@ -2291,7 +2383,7 @@ def multihost_worker(rank: int, nproc: int, port: int, device, fs: float) -> dic
     single-device engine), batch_master_fft across the process boundary
     (each of its spectra against sequential master_fft steps, the halo tail
     exact), the rx888 engine's main path (A and B MH_LOCAL times a block in
-    the counts and in a trace), A and B on its shards' rows against their
+    the counts, and on one due step alone), A and B on its shards' rows against their
     plain versions, then MH_TIMED timed steps. The processes time their
     kernels one after the other. Returns what its process prints."""
     import torch.distributed as dist
@@ -2331,7 +2423,7 @@ def multihost_worker(rank: int, nproc: int, port: int, device, fs: float) -> dic
             fail(f"multihost rank {rank}: halo tail exact {tail_exact}, spectra rel err {rel}")
         out["halo"] = {"blocks": D, "max_rel_err": rel, "tail_exact": tail_exact}
         del es, seq, Fb, F
-        # the main path: counts and a trace, then A and B per shard, one
+        # the main path by the counts, then A and B per shard, one
         # process at a time on the card
         em = rt.Engine(samprate=fs, real=True, groups=rx888_groups(rt), mesh=mesh)
         out["main_path"] = mesh_step_check(em, device)
@@ -2429,8 +2521,8 @@ def run_multihost(card: str, out_dir: Path, one_process_ms: float) -> tuple[dict
         ranks.append(json.loads(last))
     for w in ranks:
         if w["main_path"]["launches"]["channelize"] != MH_LOCAL * w["main_path"]["blocks"] \
-                or w["main_path"]["traced_launches"] != {"channelize": MH_LOCAL,
-                                                         "noise_est": MH_LOCAL}:
+                or w["main_path"]["due_step_launches"] != {"channelize": MH_LOCAL,
+                                                           "noise_est": MH_LOCAL}:
             fail(f"multihost rank {w['rank']}: launches {w['main_path']}")
     out = {"phase": "multihost", "card": card, "processes": MH_NPROC,
            "shards_per_process": MH_LOCAL, "transport": ranks[0]["transport"],
@@ -2477,6 +2569,311 @@ def run_churn(card: str, out_dir: Path) -> dict:
         fail(f"churn: no background restock swapped in: {soak}")
     return {"phase": "churn", "card": card, "tool": "tools/churn_soak_torch.py",
             "soak_seconds": CHURN_S, **soak, "seconds": time.perf_counter() - t0}
+
+
+# ------------------------------------------------- the RTP A/D front end
+INGEST_FPP = 8192  # frames a packet on loopback (see ingest_config's `reduced`)
+INGEST_RAW_S = 2.0  # the raw run's stream seconds at 8,192 frames a packet
+INGEST_RAW_MTU_S = 0.25  # and at 704 (an Ethernet MTU), flat-out-limited by the loopback
+INGEST_WARM, INGEST_DISPATCHES = 1, 8  # the flagship's dispatches (8 blocks each)
+VHF_INGEST_WARM, VHF_INGEST_BLOCKS = 4, 50  # the 2 m feed's (one block each)
+
+
+def bench_ingest_tool():
+    """tools/bench_ingest_torch.py as a module (tools/ is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench_ingest_torch",
+                                                  ROOT / "tools" / "bench_ingest_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ingest_config(conf: Path, section: str, port: int, dport: int, sport: int,
+                  status: str, data: str) -> tuple[str, list[str]]:
+    """`conf` with its [section] RTP stream pointed at 127.0.0.1:port (fed
+    by ingest_blast), its data and status on local ports and no SAP or
+    mDNS: (config text, the changes for `reduced`)."""
+    import re
+
+    text = conf.read_text()
+    pat = rf"(\[{re.escape(section)}\][^\[]*?\nstream\s*=\s*)(\S+)"
+    m = re.search(pat, text)
+    if m is None:
+        fail(f"ingest: no `stream =` in {conf.name}'s [{section}]")
+    text = text[:m.start(2)] + f"127.0.0.1:{port}" + text[m.end(2):]
+    text = text.replace(f"status = {status}", f"status = 127.0.0.1:{sport}")
+    text = text.replace(f"data = {data}", f"data = 127.0.0.1:{dport}")
+    text = text.replace("[global]\n", "[global]\nsap = no\nadvertise = no\n", 1)
+    return text, [
+        f"[{section}] stream: {m.group(2)} -> 127.0.0.1:{port}, fed by ingest_blast (the port's "
+        "native paced sender: the s16be ramp ((frame & 0x3fff) - 0x2000) on every sample)",
+        f"data, status: {data}, {status} -> 127.0.0.1:{dport}, 127.0.0.1:{sport}",
+        "sap = no, advertise = no: no SAP or mDNS announcements (the run has no network)"]
+
+
+def expected_launches(eng, j0: int, j1: int) -> dict:
+    """Kernel A and B launches of the engine's groups over blocks j0..j1-1,
+    every group past its warm-up: A each block in a group that takes the
+    tiled kernel, B on the N0 cadence in each group that estimates N0."""
+    due = sum(1 for b in range(j0, j1) if eng.noise_every == 1 or b % eng.noise_every == 0)
+    n_a = n_b = 0
+    for g in eng.groups.values():
+        if g.spec.demod == "spectrum" and (g.spectrum_wide or not g.host["armed"]):
+            continue
+        n_b += 1
+        n_a += int(g.tiled and not g.spec.beam and g.tile_E is not None)
+    return {"channelize": (j1 - j0) * n_a, "noise_est": due * n_b}
+
+
+def leaves_finite(tree) -> tuple[bool, int]:
+    """Whether every float or complex tensor (or array) in a nest of dicts,
+    lists and tuples is finite, and how many values were checked."""
+    ok, n = True, 0
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif torch.is_tensor(x) and (x.is_floating_point() or x.is_complex()):
+            ok, n = ok and bool(torch.isfinite(x).all()), n + x.numel()
+        elif isinstance(x, np.ndarray) and x.dtype.kind in "fc":
+            ok, n = ok and bool(np.isfinite(x).all()), n + x.size
+    return ok, n
+
+
+def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data: str,
+                  fs: float, width: int, fpp: int, warm: int, dispatches: int, trace: bool,
+                  tool) -> tuple[dict, dict]:
+    """`conf` through the port's Radiod on `device`, its [section] RTP
+    stream fed by ingest_blast at fs in fpp-frame packets (width samples a
+    frame): warm dispatches, then `dispatches` timed, then (trace) one under
+    the profiler. Holds the first timed dispatch's block, copied back from
+    the card, to the ramp bit for bit; A and B to their counts; every float
+    output of that dispatch to finite; the RTP audio to the channels' own
+    SSRCs; and the frames sent to those read, dropped and still buffered.
+    Returns (the run's JSON, kernels A and B checked at its shapes)."""
+    import select
+    import socket
+    import threading
+
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.native import ingest_blast
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    port, dport, sport = _free_port(), _free_port(), _free_port()
+    text, reduced = ingest_config(conf, section, port, dport, sport, status, data)
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+    rx.bind(("127.0.0.1", dport))
+    rx.setblocking(False)
+    t0 = time.perf_counter()
+    rd = Radiod(load_config(text), use_network=True, data_port=dport, status_port=sport,
+                device=device)
+    t_init = time.perf_counter() - t0
+    fe, eng = rd.frontend, rd.engine
+    st_fe = fe.stats()
+    if not st_fe["native"]:
+        fail(f"ingest {conf.name}: the RTP source is not the native reader: "
+             f"{fe.fallback_reason}")
+    L, D = eng.L, rd._time_shards or 1
+    per = L * D  # frames a dispatch
+    nsend = (warm + dispatches + int(trace) + 2) * per
+    sender: dict = {}
+
+    def tx():
+        t = time.perf_counter()
+        sender["frames"] = ingest_blast(("127.0.0.1", port), encoding=tool.S16BE, width=width,
+                                        frames_per_pkt=fpp, nframes=nsend, pace_fps=int(fs))
+        sender["s"] = time.perf_counter() - t
+
+    ssrcs = {c.ssrc for c in rd.chans.values()}
+    heard: dict[int, int] = {}
+
+    def drain():
+        while select.select([rx], [], [], 0)[0]:
+            h, _ = RtpHeader.unpack(rx.recv(65536))
+            heard[h.ssrc] = heard.get(h.ssrc, 0) + 1
+
+    kept: dict = {}
+    to_device, step = rd._to_device, rd.step
+
+    def keep_block(block):
+        t = to_device(block)
+        if "block" not in kept:
+            kept["block"] = t.clone()
+        return t
+
+    def keep_out(state, params, block):
+        state, out = step(state, params, block)
+        if "finite" not in kept:
+            kept["finite"] = leaves_finite(out)
+        return state, out
+
+    th = threading.Thread(target=tx, daemon=True)
+    try:
+        bind_s = tool.wait_bound(("127.0.0.1", port), fe.stats)
+        th.start()
+        t0 = time.perf_counter()
+        for _ in range(warm):
+            rd.step_block()
+            drain()
+        t_warm = time.perf_counter() - t0
+        rd._to_device, rd.step = keep_block, keep_out
+        rd.frontend_host = dict.fromkeys(rd.frontend_host, 0)
+        rd._t_n = 0
+        cc.reset_launches()
+        heard.clear()
+        j0, b0, drops0, ovf0 = (rd.state["host"]["jobnum"], rd.blocks, rd.block_drops,
+                                rd.egress_overflows)
+        t0 = time.perf_counter()
+        for _ in range(dispatches):
+            rd.step_block()
+            drain()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rd._to_device, rd.step = to_device, step
+        time.sleep(0.05)  # the last dispatch's packets on the loopback
+        drain()
+        opened = {c.ssrc for c in rd.chans.values() if c.sending}  # after the last timed block
+        heard_timed = set(heard)
+        overflowed = rd.egress_overflows - ovf0
+        launches = {k: cc.launches[k] for k in ("channelize", "noise_est")}
+        want = expected_launches(eng, j0, rd.state["host"]["jobnum"])
+        blocks, split = rd.blocks - b0, rd.frontend_split()
+        p50, p99 = rd.latency_percentiles()
+        busy = None
+        if trace:
+            _, kern, twall, note = traced(lambda: (rd.step_block(), drain()), f"ingest {conf.name}")
+            dev_ms = sum(ev.time_range.elapsed_us() for ev in kern) / 1e3
+            busy = {"traced_dispatches": 1, "device_busy_ms_per_dispatch": dev_ms,
+                    "wall_ms_per_dispatch_traced": twall, "device_idle_share": 1.0 - dev_ms / twall,
+                    "kernel_in_daemon_ms": per_launch_ms(kern, KERNEL_NAMES), **note}
+        th.join(timeout=nsend / fs + 30.0)
+        st = tool.settle(fe.stats)
+        drain()
+    finally:
+        fe.close()
+        for edge_, _ in rd.edges.values():
+            edge_.close()
+        rx.close()
+    # the first timed dispatch's block on the card against the ramp, bit for bit
+    host_blk = kept["block"].cpu()
+    frames = (torch.view_as_real(host_blk) if host_blk.is_complex() else host_blk[..., None])
+    frames = frames.reshape(-1, width).numpy()
+    k0 = int(np.rint(float(frames[0, 0]) * 32767.0)) + 0x2000
+    ramp = tool.ramp_value(((k0 + np.arange(frames.shape[0])) & 0x3fff) - 0x2000, tool.S16BE)
+    off_ramp = int((frames.view(np.uint32) != ramp.view(np.uint32)[:, None]).any(1).sum())
+    reads = (warm + dispatches + int(trace)) * per
+    acc = tool.accounting(sender.get("frames", -1), (reads - st["starve_frames"]) * width, st,
+                          width)
+    finite, n_finite = kept["finite"]
+    out = {"config": str(conf.relative_to(ROOT) if conf.is_relative_to(ROOT) else conf),
+           "reduced": reduced, "init_s": t_init,
+           "fs_msps": fs / 1e6, "width": width, "frames_per_pkt": fpp, "L": L,
+           "time_shards": D, "channels": len(rd.chans), "bind_wait_s": bind_s,
+           "warm_dispatches": warm,
+           "warm_s": t_warm, "dispatches": dispatches, "blocks": blocks, "wall_s": wall,
+           "achieved_msps": blocks * L / wall / 1e6,
+           "realtime_margin": (blocks * L / fs) / wall, "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+           "block_drops": rd.block_drops - drops0, "host_ms_per_dispatch": split,
+           "h2d_bytes_per_dispatch": split["h2d_bytes"],
+           "sender": {**sender, "msps": sender["frames"] / sender["s"] / 1e6
+                      if "frames" in sender else None},
+           "ingest": {k: v for k, v in st.items() if k != "native"},
+           "native_reader": bool(st["native"]), **acc,
+           "ramp_first_dispatch": {"frames": int(frames.shape[0]), "off_ramp": off_ramp,
+                                   "first_k": k0},
+           "launches": launches, "want_launches": want,
+           "finite": finite, "finite_values_checked": n_finite,
+           "rtp_packets": sum(heard.values()), "rtp_ssrcs": len(heard),
+           "rtp_foreign_ssrcs": sorted(set(heard) - ssrcs)[:10],
+           "open_last_timed_block": len(opened),
+           "open_not_heard": len(opened - heard_timed),
+           "egress_overflows_timed": overflowed, **(busy or {})}
+    what = f"ingest {conf.name}"
+    if off_ramp:
+        fail(f"{what}: the first timed dispatch's block is off the ramp on {off_ramp} frames")
+    if launches != want:
+        fail(f"{what}: launches {launches}, want {want}")
+    if not finite or not n_finite:
+        fail(f"{what}: non-finite outputs ({n_finite} values checked)")
+    # every channel open at the last timed block sent audio on the socket
+    # (all of them unless the egress slots overflowed), and no other SSRC did
+    if out["rtp_foreign_ssrcs"] or (opened - heard_timed and not overflowed) \
+            or len(heard_timed) < min(len(opened), 1):
+        fail(f"{what}: RTP audio from {len(heard)} SSRCs (foreign "
+             f"{out['rtp_foreign_ssrcs']}); {len(opened)} channels open at the last timed "
+             f"block, {len(opened - heard_timed)} of them not heard, {overflowed} overflows")
+    if not acc["accounting_ok"]:
+        fail(f"{what}: frames do not add up: {acc}")
+    if not out["native_reader"]:
+        fail(f"{what}: the reader was not native")
+    # A and B against their plain versions on the master spectrum of the
+    # ramp's first block, at the daemon's shapes
+    _, F = master_fft(eng.master, eng.init_state()["master"], kept["block"].reshape(-1, L)[0])
+    group = next(n for n, g in eng.groups.items() if g.tiled and g.tile_E is not None)
+    at = {k["name"]: k for k in check_kernels(eng, rd.params, F, group)}
+    return out, {name: {"group": group, "C": eng.groups[group].C, "launches": launches[name],
+                        "in_daemon_ms": (busy or {}).get("kernel_in_daemon_ms", {}).get(name),
+                        **{x: at[name][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "max_abs_err", "max_rel_err",
+                                                    "err_bound") if x in at[name]}}
+                 for name in at}
+
+
+def run_ingest(card: str, device) -> tuple[dict, dict]:
+    """The RTP A/D front end on the card: (a) the raw loopback ceiling,
+    paced 8,192-frame packets at 129.6 Msps, then 704-frame ones, every
+    frame held to the ramp; the host-to-card copy of one flagship dispatch,
+    pinned and pageable; (b) the flagship config fed at 129.6 Msps; (c)
+    the 2 m config's complex 5.12 Msps feed (the I/Q framing). Returns (the
+    phase's JSON, A and B at the flagship's ingest)."""
+    tool = bench_ingest_tool()
+    t_phase = time.perf_counter()
+    out = {"phase": "ingest", "card": card}
+    raw = {"paced_8192": tool.bench_raw(FS, INGEST_RAW_S, False, INGEST_FPP),
+           "paced_704": tool.bench_raw(FS, INGEST_RAW_MTU_S, False, 704)}
+    for name, r in raw.items():
+        if not (r["ramp_accounted"] and r["accounting_ok"]) or r["ramp_frames_checked"] == 0:
+            fail(f"ingest raw {name}: ramp or frame accounting off: {r}")
+    out["raw"] = raw
+    blk = torch.zeros(8 * 2_592_000, dtype=torch.float32)
+    pinned = blk.pin_memory()
+    out["h2d"] = {"bytes": blk.numel() * 4,
+                  "pinned_ms": event_ms(lambda: pinned.to(device, non_blocking=True), n=10,
+                                        what="h2d pinned"),
+                  "pageable_ms": event_ms(lambda: blk.to(device), n=5, what="h2d pageable")}
+    out["h2d"]["pinned_gbs"] = out["h2d"]["bytes"] / out["h2d"]["pinned_ms"] / 1e6
+    out["h2d"]["pageable_gbs"] = out["h2d"]["bytes"] / out["h2d"]["pageable_ms"] / 1e6
+    del blk, pinned
+    mtu = raw["paced_704"]["rx_msps"]
+    flag, at = ingest_daemon(card, device, WSPR_CONF, "adc", "hffarm.local", "hffarm-pcm.local",
+                             FS, 1, INGEST_FPP, INGEST_WARM, INGEST_DISPATCHES, True, tool)
+    flag["reduced"].append(
+        f"the stream in {INGEST_FPP:,}-frame packets, not an SDR host's 704 (an Ethernet MTU): "
+        f"the raw 704-frame run here carried {mtu:.1f} Msps on the loopback (gVisor's packet "
+        "rate), under the 129.6 Msps the config runs at")
+    flag["reduced"].append(
+        f"{INGEST_DISPATCHES} timed dispatches ({INGEST_DISPATCHES * 8} blocks) after "
+        f"{INGEST_WARM} warm one and before 1 traced; the sender stops after that many "
+        "dispatches' frames and 2 more")
+    out["flagship"] = {**flag, "kernels": at}
+    torch.cuda.empty_cache()
+    vhf, at_vhf = ingest_daemon(card, device, VHF_CONF, "vhf-feed", "2m.local", "2m-pcm.local",
+                                VHF_FEED_FS, 2, 704, VHF_INGEST_WARM, VHF_INGEST_BLOCKS, False,
+                                tool)
+    vhf["reduced"].append(f"{VHF_INGEST_BLOCKS} timed blocks after {VHF_INGEST_WARM} warm ones")
+    out["vhf"] = {**vhf, "kernels": at_vhf}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, at
 
 
 def main() -> None:
@@ -2705,7 +3102,8 @@ def main() -> None:
     at_odd = {k["name"]: k for k in check_kernels(oeng, oparams, F, "nbfm")}
     if set(at_odd) != {"noise_est"} or at_odd["noise_est"]["shape"]["window"] != "per-element":
         fail(f"odd_master: kernels {at_odd}")
-    chan_ms = device_ms(lambda: og._channelize(oparams["nbfm"], F))
+    chan_ms = event_ms(lambda: og._channelize(oparams["nbfm"], F),
+                       what="per-element channelize")
     del F
     osc = nbfm400_scene(oeng, oparams, device, k=ODD_K, quiet=ODD_QUIET)
     check_nbfm400_scene(osc, "odd_master", (80, 480))
@@ -2775,10 +3173,18 @@ def main() -> None:
     del farm
     torch.cuda.empty_cache()
 
+    # phase 18: the RTP A/D front end: the raw loopback ceiling, the flagship
+    # fed at 129.6 Msps through the native reader, the 2 m complex feed
+    ing, at_ing = run_ingest(card, device)
+    emit(ing)
+    for kern in kernels[:2]:
+        kern["at_ingest"] = at_ing[kern["name"]]
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules or any(n == "ka9q_radio_tpu" or n.startswith("ka9q_radio_tpu.")
                                    for n in sys.modules):
         fail("the port pulled in jax or the JAX package")
-    emit({"kernels": kernels, "card": card})
+    emit({"kernels": kernels, "card": card, "profiler": PROFILER})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -14,7 +14,8 @@ import threading
 
 import numpy as np
 
-__all__ = ["RtpEdge", "RtpIngest", "native_available", "native_has_opus", "build"]
+__all__ = ["RtpEdge", "RtpIngest", "ingest_blast", "native_available", "native_has_opus",
+           "build"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "rtp_edge.cpp")
@@ -90,6 +91,11 @@ def _load():
         lib.rtp_ingest_stats.argtypes = [
             ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
         lib.rtp_ingest_close.argtypes = [ctypes.c_int]
+        lib.rtp_ingest_blast.restype = ctypes.c_longlong
+        lib.rtp_ingest_blast.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int]
         _lib = lib
         return lib
 
@@ -248,3 +254,16 @@ class RtpIngest:
             self._lib.rtp_ingest_close(self.fd)
             self.fd = -1
 
+
+def ingest_blast(dest: tuple[str, int], encoding: int = 2, width: int = 1,
+                 ssrc: int = 0x5D12, frames_per_pkt: int = 704,
+                 nframes: int = 1_000_000, pace_fps: int = 0,
+                 ttl: int = 0) -> int:
+    """Native paced RTP sender (the bench and feeder peer): streams the
+    ramp ((frame & 0x3fff) - 0x2000) as s16 (or that over 32767 as f32),
+    the same value on each of `width` samples of a frame, at pace_fps
+    frames/s (0: flat out). Blocks until sent: run it in a thread.
+    Returns frames sent (whole packets), < 0 on error."""
+    return int(_load().rtp_ingest_blast(
+        dest[0].encode(), dest[1], int(encoding), int(width), ssrc,
+        frames_per_pkt, nframes, pace_fps, ttl))

@@ -28,6 +28,7 @@
 #include <sys/socket.h>
 #include <netinet/in.h>
 #include <netinet/ip.h>
+#include <poll.h>
 #include <arpa/inet.h>
 #include <unistd.h>
 
@@ -493,6 +494,10 @@ int rtp_edge_send_indexed(int fd, const float *audio, int nactive,
 //   consumer (the daemon's read_block): blocking ring read with
 //   timeout; starvation zero-fills so the engine keeps cadence,
 //   exactly like the Python fallback.
+//
+// A paced native sender (rtp_ingest_blast) is the loopback at-rate bench
+// peer: pcmsend semantics (s16be payloads, seq/ts per packet) at a target
+// frames/s without Python in the packet loop.
 // ===========================================================================
 
 namespace {
@@ -616,8 +621,14 @@ void ingest_loop(Ingest *ig) {
   }
   std::vector<float> scratch(PKT_CAP / 2 + 8);
   while (ig->run.load(std::memory_order_relaxed)) {
-    int n = recvmmsg(ig->fd, hdrs.data(), BATCH, MSG_WAITFORONE, nullptr);
-    if (n <= 0) continue;  // SO_RCVTIMEO tick: re-check run flag
+    // wait up to 100 ms for one datagram (the tick that re-checks the run
+    // flag), then take all that are queued: MSG_WAITFORONE's semantics from
+    // poll + MSG_DONTWAIT, since gVisor's recvmmsg refuses MSG_WAITFORONE
+    // with EINVAL
+    pollfd pfd{ig->fd, POLLIN, 0};
+    if (poll(&pfd, 1, 100) <= 0) continue;
+    int n = recvmmsg(ig->fd, hdrs.data(), BATCH, MSG_DONTWAIT, nullptr);
+    if (n <= 0) continue;
     for (int i = 0; i < n; i++) {
       const uint8_t *p = bufs.data() + (size_t)i * PKT_CAP;
       size_t len = hdrs[i].msg_len;
@@ -688,8 +699,6 @@ int rtp_ingest_open(const char *ip, int port, int encoding, int width,
   setsockopt(fd, SOL_SOCKET, SO_REUSEADDR, &one, sizeof one);
   int sz = (rcvbuf_mb > 0 ? rcvbuf_mb : 64) << 20;
   setsockopt(fd, SOL_SOCKET, SO_RCVBUF, &sz, sizeof sz);
-  timeval tv{0, 100000};  // 100 ms: lets the reader thread notice shutdown
-  setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof tv);
   sockaddr_in sa{};
   sa.sin_family = AF_INET;
   sa.sin_port = htons((uint16_t)port);
@@ -793,6 +802,84 @@ void rtp_ingest_close(int h) {
   if (ig->reader.joinable()) ig->reader.join();
   close(ig->fd);
   delete ig;
+}
+
+// Paced loopback/LAN RTP sender for ingest benches and feeders: streams
+// `nframes` frames of s16be/f32le test pattern (ramp in frame index, so
+// the receiver can verify continuity) to ip:port at pace_fps frames/s
+// (0 = flat out), frames_per_pkt per packet. Returns frames sent, <0 on
+// error. Runs synchronously — call from a thread.
+long long rtp_ingest_blast(const char *ip, int port, int encoding, int width,
+                           uint32_t ssrc, int frames_per_pkt,
+                           long long nframes, long long pace_fps, int ttl) {
+  int fd = rtp_edge_open(ip, port, ttl, 0);
+  if (fd < 0) return -1;
+  sockaddr_in dst{};
+  if (!edge_dest_of(fd, &dst)) { rtp_edge_close(fd); return -1; }
+  size_t sbytes = sample_bytes(encoding);
+  size_t plen = (size_t)frames_per_pkt * width * sbytes;
+  if (12 + plen > 65000) { rtp_edge_close(fd); return -2; }
+  constexpr int BATCH = 128;
+  std::vector<uint8_t> bufs((size_t)BATCH * (12 + plen));
+  std::vector<mmsghdr> hdrs(BATCH);
+  std::vector<iovec> iovs(BATCH);
+  for (int i = 0; i < BATCH; i++) {
+    iovs[i] = {bufs.data() + (size_t)i * (12 + plen), 12 + plen};
+    memset(&hdrs[i], 0, sizeof(mmsghdr));
+    hdrs[i].msg_hdr.msg_iov = &iovs[i];
+    hdrs[i].msg_hdr.msg_iovlen = 1;
+    hdrs[i].msg_hdr.msg_name = (void *)&dst;
+    hdrs[i].msg_hdr.msg_namelen = sizeof(sockaddr_in);
+  }
+  uint16_t seq = 0;
+  uint32_t ts = 0;
+  long long sent = 0;
+  auto t0 = std::chrono::steady_clock::now();
+  while (sent < nframes) {
+    int nb = 0;
+    for (; nb < BATCH && sent + (long long)frames_per_pkt * nb < nframes; nb++) {
+      uint8_t *b = bufs.data() + (size_t)nb * (12 + plen);
+      put_rtp_header(b, 97, false, seq, ts, ssrc);
+      seq = (uint16_t)(seq + 1);
+      long long base = sent + (long long)frames_per_pkt * nb;
+      // pattern: sample value == (frame index mod 2^14) - 2^13, so the
+      // receiver can assert continuity after the s16 round trip
+      for (int f = 0; f < frames_per_pkt; f++) {
+        int16_t v = (int16_t)(((base + f) & 0x3fff) - 0x2000);
+        for (int w = 0; w < width; w++) {
+          uint8_t *q = b + 12 + ((size_t)f * width + w) * sbytes;
+          if (encoding == E_S16BE) { q[0] = (uint8_t)(v >> 8); q[1] = (uint8_t)v; }
+          else if (encoding == E_S16LE) { q[0] = (uint8_t)v; q[1] = (uint8_t)(v >> 8); }
+          else { float fv = (float)v / 32767.0f; memcpy(q, &fv, 4); }
+        }
+      }
+      ts += (uint32_t)frames_per_pkt;
+    }
+    int done = 0;
+    while (done < nb) {
+      int r = sendmmsg(fd, hdrs.data() + done, (unsigned)(nb - done), 0);
+      if (r <= 0) {
+        // transient loopback/back-pressure errors must not kill a paced
+        // feeder mid-stream (a dead sender starves the daemon forever)
+        if (r < 0 && (errno == EINTR || errno == EAGAIN || errno == ENOBUFS
+                      || errno == ENOMEM)) {
+          std::this_thread::sleep_for(std::chrono::milliseconds(1));
+          continue;
+        }
+        rtp_edge_close(fd);
+        return sent;
+      }
+      done += r;
+    }
+    sent += (long long)frames_per_pkt * nb;
+    if (pace_fps > 0) {
+      auto target = t0 + std::chrono::nanoseconds(
+          (long long)(1e9 * (double)sent / (double)pace_fps));
+      std::this_thread::sleep_until(target);
+    }
+  }
+  rtp_edge_close(fd);
+  return sent;
 }
 
 }  // extern "C"

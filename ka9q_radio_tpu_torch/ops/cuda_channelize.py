@@ -79,8 +79,8 @@ _KERNELS = {
 _SRC_FLAGS = {"recur.cu": ("-fmad=false",)}
 SOURCES = {name: f"ka9q_radio_tpu_torch/csrc/{src}" for name, (src, _, _) in _KERNELS.items()}
 REPLACES = {
-    "channelize": "ka9q_radio_tpu/ops/pallas_channelize.py:165 (pallas_channelize; pallas_call at :214)",
-    "noise_est": "ka9q_radio_tpu/ops/pallas_channelize.py:286 (pallas_noise_est; pallas_call at :324)",
+    "channelize": "ka9q_radio_tpu/ops/pallas_channelize.py:168 (pallas_channelize; pallas_call at :214)",
+    "noise_est": "ka9q_radio_tpu/ops/pallas_channelize.py:288 (pallas_noise_est; pallas_call at :324)",
     "pll_scan": "ka9q_radio_tpu/models/linear.py:66-89 (the PLL's lax.scan; not a TPU kernel)",
     "goertzel": "ka9q_radio_tpu/ops/iir.py:172-177 (the Goertzel's lax.scan; not a TPU kernel)",
 }

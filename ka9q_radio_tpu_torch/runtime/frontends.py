@@ -17,6 +17,7 @@ Each exposes: samprate, real, and read_block(L) -> np.ndarray[L].
 from __future__ import annotations
 
 import select
+import sys
 
 import numpy as np
 
@@ -101,10 +102,11 @@ class RtpSource:
     The default path is the NATIVE reader (native/rtp_edge.cpp
     rtp_ingest): a C++ thread doing recvmmsg batches + vectorized
     s16/f32 -> f32 conversion into a preallocated ring — the
-    rx888.c:668-744 completion-callback analog, measured 188 Msps
-    flat-out / 129.6 Msps paced with zero loss on loopback where the
-    Python recvfrom loop tops out around 1 Msps. Python remains the
-    fallback (no toolchain, exotic encodings).
+    rx888.c:668-744 completion-callback analog; the Python recvfrom loop
+    tops out around 1 Msps. Python remains the fallback where the native
+    reader cannot take the encoding or cannot build or open; the reason
+    goes to stderr and `fallback_reason`, and stats()["native"] says which
+    reader runs.
     """
 
     def __init__(self, stream: str, samprate: float, real: bool = False,
@@ -117,20 +119,13 @@ class RtpSource:
         self.width = 1 if real else 2
         self.timeouts = 0
         self._native = None
+        self.fallback_reason = None
         dest = resolve_dest(stream, DEFAULT_RTP_PORT)
-        if native and int(self.encoding) in (1, 2, 4, 8):
-            try:
-                from ..native import RtpIngest, native_available
-
-                if native_available():
-                    # ring sized >= 2 * max_buffer_s of stream
-                    need = 2.0 * max_buffer_s * self.samprate * self.width
-                    log2 = max(20, min(30, int(np.ceil(np.log2(max(need, 1))))))
-                    self._native = RtpIngest(
-                        dest, encoding=int(self.encoding), width=self.width,
-                        ssrc=ssrc or 0, ring_log2=log2)
-            except Exception:
-                self._native = None
+        if native:
+            self._native, self.fallback_reason = self._open_native(dest, max_buffer_s)
+            if self._native is None:
+                print(f"RtpSource {stream}: the Python reader runs: {self.fallback_reason}",
+                      file=sys.stderr, flush=True)
         if self._native is not None:
             self.sock = None
             self.rtp = RtpState()  # stats shadow (native keeps its own)
@@ -139,6 +134,23 @@ class RtpSource:
         self.rtp = RtpState()
         self._buf = np.zeros(0, np.float32)
         self.max_buffer = int(max_buffer_s * self.samprate) * self.width
+
+    def _open_native(self, dest, max_buffer_s: float):
+        """(the native reader, None), or (None, why it cannot run)."""
+        from ..native import RtpIngest, native_available
+
+        if int(self.encoding) not in RtpIngest.SUPPORTED:
+            return None, f"the native reader does not convert {self.encoding.name}"
+        if not native_available():
+            return None, "the native edge did not build or load"
+        # ring sized >= 2 * max_buffer_s of stream
+        need = 2.0 * max_buffer_s * self.samprate * self.width
+        log2 = max(20, min(30, int(np.ceil(np.log2(max(need, 1))))))
+        try:
+            return RtpIngest(dest, encoding=int(self.encoding), width=self.width,
+                             ssrc=self.ssrc or 0, ring_log2=log2), None
+        except Exception as e:  # noqa: BLE001 - any failure leaves the Python reader
+            return None, f"the native reader did not open: {e!r}"
 
     def _pump(self, timeout: float):
         r, _, _ = select.select([self.sock], [], [], timeout)
@@ -184,11 +196,11 @@ class RtpSource:
         """Ingest loss accounting (native reader) — the analog of the
         reference's USB transfer-loss counters (rx888.c:675-688)."""
         if self._native is not None:
-            return self._native.stats()
+            return {**self._native.stats(), "native": True}
         return {"packets": self.rtp.packets, "bytes": self.rtp.bytes,
                 "gap_frames": self.rtp.drops, "dups": self.rtp.dupes,
                 "overrun_frames": 0, "starve_frames": 0,
-                "malformed": 0, "buffered_floats": self._buf.size}
+                "malformed": 0, "buffered_floats": self._buf.size, "native": False}
 
     def close(self):
         if self._native is not None:

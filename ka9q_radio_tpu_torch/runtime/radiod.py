@@ -312,6 +312,9 @@ class Radiod:
         # main.c:151-188): a bounded ring, ~7 min at 20 ms blocks
         self._t_ring = np.zeros(20_000, np.float32)
         self._t_n = 0
+        # the front-end host path's cumulative time (frontend_split)
+        self.frontend_host = dict.fromkeys(("reads", "ring_read_s", "stack_s", "copies",
+                                            "pin_s", "copy_s", "h2d_bytes"), 0)
         # output aggregation: min blocks per RTP packet (audio.c:64-110,
         # config 'block = 0-4'); >0 buffers audio and disables the native
         # edge (the Python path owns packet timing then)
@@ -2045,25 +2048,57 @@ class Radiod:
     def _read_frontend(self, n: int) -> np.ndarray:
         """n consecutive blocks (n = 1: one [L] block, or [B, L] from the B
         feeders of several inputs) from the host front ends; a block that a
-        reader could not fill counts as a drop."""
+        reader could not fill counts as a drop. Its host time (the readers'
+        read_block, then the stacking) adds to `frontend_host`."""
         fes, L = self.frontends or [self.frontend], self.engine.L
         before = [getattr(fe, "timeouts", 0) for fe in fes]
-        blocks = [np.stack([np.asarray(fe.read_block(L)) for fe in fes]) for _ in range(n)]
+        t_start, read_s, blocks = time.perf_counter(), 0.0, []
+        for _ in range(n):
+            t = time.perf_counter()
+            rows = [np.asarray(fe.read_block(L)) for fe in fes]
+            read_s += time.perf_counter() - t
+            blocks.append(np.stack(rows))
         gaps = max(getattr(fe, "timeouts", 0) - b for fe, b in zip(fes, before))
         self.block_drops += min(gaps, n)
         if self.frontends is None:
             blocks = [b[0] for b in blocks]
-        return blocks[0] if n == 1 else np.stack(blocks)
+        out = blocks[0] if n == 1 else np.stack(blocks)
+        fh = self.frontend_host
+        fh["reads"] += 1
+        fh["ring_read_s"] += read_s
+        fh["stack_s"] += time.perf_counter() - t_start - read_s
+        return out
 
     def _to_device(self, block) -> torch.Tensor:
         """A host block to the engine's device: pinned, then copied with
-        non_blocking=True."""
+        non_blocking=True (the host time of each, and the bytes, add to
+        `frontend_host`)."""
         if torch.is_tensor(block):
             return block.to(self.device)
         t = torch.from_numpy(np.ascontiguousarray(block))
         if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
+            fh, t0 = self.frontend_host, time.perf_counter()
+            t = t.pin_memory()
+            t1 = time.perf_counter()
+            t = t.to(self.device, non_blocking=True)
+            fh["copies"] += 1
+            fh["pin_s"] += t1 - t0
+            fh["copy_s"] += time.perf_counter() - t1
+            fh["h2d_bytes"] += t.numel() * t.element_size()
         return t
+
+    def frontend_split(self) -> dict:
+        """The front-end host path's ms a dispatch since `frontend_host` was
+        last zeroed: the readers' read_block (for RTP, the ring read and the
+        I/Q interleave), the stacking of the blocks, pin_memory, and the
+        copy's enqueue (non_blocking: the copy itself runs on the card),
+        with the bytes copied to the card a dispatch."""
+        fh = self.frontend_host
+        per = lambda k, n: fh[k] * 1e3 / n if n else None  # noqa: E731
+        return {"reads": fh["reads"], "ring_read_ms": per("ring_read_s", fh["reads"]),
+                "stack_ms": per("stack_s", fh["reads"]), "pin_ms": per("pin_s", fh["copies"]),
+                "copy_ms": per("copy_s", fh["copies"]),
+                "h2d_bytes": fh["h2d_bytes"] / fh["copies"] if fh["copies"] else None}
 
     def step_block(self, block=None):
         """Run one dispatch end to end: one 20 ms block, or D consecutive

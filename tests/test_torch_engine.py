@@ -371,12 +371,13 @@ def test_stereo_egress_compaction_matches_jax(demod):
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor the JAX
     package, and no source of the port names them (nor chip_smoke.py, the
-    port's churn soak or its multi-process test worker)."""
+    port's churn soak and ingest bench, or its multi-process test worker)."""
     pkg = ROOT / "ka9q_radio_tpu_torch"
     mods = sorted("ka9q_radio_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
                   for p in pkg.rglob("*.py") if p.name != "__init__.py")
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
+            + "import runpy\nrunpy.run_path('tools/bench_ingest_torch.py', run_name='scan')\n"
             + "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
               " or n == 'ka9q_radio_tpu' or n.startswith('ka9q_radio_tpu.')]\n"
               "assert not bad, bad\n")
@@ -384,6 +385,7 @@ def test_port_imports_no_jax():
                        timeout=120)
     assert r.returncode == 0, r.stderr
     imp = re.compile(r"^\s*(import|from)\s+(jax|ka9q_radio_tpu)(\.|\s|$)", re.M)
-    for src in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "tools" / "churn_soak_torch.py",
+    tools = [ROOT / "tools" / "churn_soak_torch.py", ROOT / "tools" / "bench_ingest_torch.py"]
+    for src in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py", *tools,
                 ROOT / "tests" / "torch_multihost_worker.py"]:
         assert not imp.search(src.read_text()), src

@@ -22,6 +22,11 @@ from ka9q_radio_tpu_torch.ops import filterbank as tfb
 from ka9q_radio_tpu_torch.ops import noise as tnz
 
 torch.set_num_threads(2)
+# The first torch.cos/torch.sin of a process (MKL's vector math on the CPU)
+# split over two OpenMP threads can come back inaccurate in the second
+# thread's half when the host is loaded; one call on one thread first keeps
+# every later call exact.
+torch.cos(torch.zeros(1)), torch.sin(torch.zeros(1))
 
 # (n_bins, olen): rx888's 12 kHz channels (S = 512), a frame more than
 # twice the slice (S = 256 > 2n), and an odd n

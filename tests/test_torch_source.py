@@ -12,6 +12,11 @@ from ka9q_radio_tpu.runtime import source as jsrc
 from ka9q_radio_tpu_torch.runtime import source as tsrc
 
 FS, L = 1_024_000.0, 20_480
+# The first torch.cos/torch.sin of a process (MKL's vector math on the CPU)
+# split over two OpenMP threads can come back inaccurate in the second
+# thread's half when the host is loaded; one call on one thread first keeps
+# every later call exact.
+torch.cos(torch.zeros(1)), torch.sin(torch.zeros(1))
 
 
 def _cfgs(mod, real, **kw):
