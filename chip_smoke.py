@@ -63,7 +63,7 @@ counters) and against their plain versions on its rows, 8 timed steps with
 the bytes that cross processes. Then the `churn` phase:
 tools/churn_soak_torch.py on the card for 45 s with 4 spares a class (no
 foreground rebuild, no dropped block, RSS and device memory flat, at least
-one background restock swapped in). Last, the `ingest` phase, the RTP A/D
+one background restock swapped in). Then the `ingest` phase, the RTP A/D
 front end on the card: the raw loopback ceiling (tools/bench_ingest_torch.py
 raw: the native paced sender ingest_blast into the native reader, 8,192- and
 704-frame packets, every frame held to the sender's ramp), the copy of one
@@ -73,6 +73,12 @@ complex 5.12 Msps [vhf-feed] (the first timed dispatch's block on the card
 equal to the ramp bit for bit, A and B by their counters, finite outputs,
 the channels' RTP audio, the frames sent = read + dropped + still
 buffered; achieved Msps, margin, block times and the host split reported).
+Then the `tools` phase, the measuring kit: bench_torch.measure on six of
+bench.py's configurations (rx888, rx888x16, hf32000, nbfm400, wfm, linear8:
+finite output, A and B by the counters, peak device memory),
+profile_latency_torch at time-shards 0, 4 and 16,
+tools/bench_highc_torch.py for 10 s in a subprocess (it must exit 0), and
+tools/prof_master_torch.py's ablation on 1 and 4 shards of the card.
 
 Kernel times come from CUDA events around a CUDA graph of n calls (a call
 that cannot be captured: n back-to-back calls, named in its phase's line),
@@ -1403,6 +1409,7 @@ def vhf_daemon(device) -> tuple[dict, dict]:
     import ka9q_radio_tpu_torch.models.fm as fm_mod
     import ka9q_radio_tpu_torch.models.linear as linear_mod
     from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft
     from ka9q_radio_tpu_torch.net.rtp import RtpHeader
     from ka9q_radio_tpu_torch.net.status import StatusType as T, decode_status, encode_status
     from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
@@ -1540,6 +1547,16 @@ def vhf_daemon(device) -> tuple[dict, dict]:
     out["seconds"] = time.perf_counter() - t0
     out["launches"] = dict(cc.launches)
     out["block_drops"] = rd.block_drops
+    # A and B against their plain versions at the daemon's own shapes (its
+    # tiled group's rows), on the master spectrum of one scene block
+    eng = rd.engine
+    _, F = master_fft(eng.master, eng.init_state()["master"], vhf_block(0, eng.L, gen, device))
+    group = next(n for n, g in eng.groups.items() if g.tiled and g.tile_E is not None)
+    out["kernels"] = {k["name"]: {"group": group, "C": eng.groups[group].C,
+                                  **{x: k[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms", "max_abs_err", "max_rel_err",
+                                                       "err_bound") if x in k}}
+                      for k in check_kernels(eng, rd.params, F, group)}
     for mod, attr, _ in wrapped:
         setattr(mod, attr, originals[attr])
     rx.close()
@@ -1852,28 +1869,6 @@ STEREO_BLOCKS = 24
 STEREO_TOL = 1e-4  # the card's decode against the CPU path's, of the block's peak
 
 
-def _port_bound(port: int) -> bool:
-    """True once a socket is bound to 127.0.0.1:port (a probe bind fails)."""
-    import socket
-
-    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-    try:
-        s.bind(("127.0.0.1", port))
-        return False
-    except OSError:
-        return True
-    finally:
-        s.close()
-
-
-def _wait_bound(port: int, proc=None, timeout: float = 30.0, what: str = "") -> None:
-    t_end = time.monotonic() + timeout
-    while not _port_bound(port):
-        if (proc is not None and proc.poll() is not None) or time.monotonic() > t_end:
-            fail(f"clients: {what} did not bind 127.0.0.1:{port}")
-        time.sleep(0.05)
-
-
 def stereo_composite(n: int) -> np.ndarray:
     """tests/test_clients2.py's composite at 384 kHz: a 1 kHz tone on L only
     (L+R and L-R on 38 kHz), the 19 kHz pilot."""
@@ -1938,7 +1933,16 @@ def run_pcmrecord(rd, k: int = DAEMON_K, dispatches: int = 8) -> dict:
                               "--data", f"{addr}:{dport}", "--dir", tmp, "--timeout", "60"],
                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
-            _wait_bound(dport, p, what="pcmrecord-torch")
+            # the daemon steps until the recorder has opened the carrier's file:
+            # it is bound and receiving (a probe bind of its port could take
+            # the port from under it)
+            t_end = time.monotonic() + 60
+            while not list(Path(tmp).glob(f"*_ssrc{ch.ssrc}.wav")):
+                if p.poll() is not None or time.monotonic() > t_end:
+                    fail(f"clients: pcmrecord-torch opened no file for ssrc {ch.ssrc} "
+                         f"(rc {p.poll()})")
+                rd.step_block()
+                time.sleep(0.1)
             b0, t0 = rd.blocks, time.perf_counter()
             for _ in range(dispatches):
                 rd.step_block()
@@ -1974,7 +1978,7 @@ def run_stereod(device) -> dict:
     import socket
     import threading
 
-    from ka9q_radio_tpu_torch.cli.stereod import main as stereod_main
+    from ka9q_radio_tpu_torch.cli import stereod as stereod_cli
     from ka9q_radio_tpu_torch.models.wfm import StereoDecoder
     from ka9q_radio_tpu_torch.net.rtp import Encoding, RtpHeader, decode_samples, encode_samples
 
@@ -1996,16 +2000,34 @@ def run_stereod(device) -> dict:
     _, ev, _, note = traced(lambda: [card_dec.decode(on_card) for _ in range(4)], "stereod")
     copies = sum(1 for e in ev if "memcpy" in e.name.lower() or "memset" in e.name.lower())
 
-    # the CLI on the card over 127.0.0.1: 700-sample packets straddle blocks
-    pin, pout = _free_port(), _free_port()
+    # the CLI on the card over 127.0.0.1: 700-sample packets straddle blocks.
+    # Its input binds port 0 and the wrapped listen_socket says which port it
+    # got, so no other socket can hold that port meanwhile.
     rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
-    rx.bind(("127.0.0.1", pout))
-    th = threading.Thread(target=stereod_main, daemon=True, args=(
-        ["--input", f"127.0.0.1:{pin}", "--output", f"127.0.0.1:{pout}", "--duration", "4",
-         "--device", str(device)],))
-    th.start()
-    _wait_bound(pin, what="stereod-torch")
+    rx.bind(("127.0.0.1", 0))
+    pout = rx.getsockname()[1]
+    bound, real_listen = [], stereod_cli.listen_socket
+
+    def listen_and_tell(dest):
+        s = real_listen(dest)
+        bound.append(s.getsockname()[1])
+        return s
+
+    stereod_cli.listen_socket = listen_and_tell
+    try:
+        th = threading.Thread(target=stereod_cli.main, daemon=True, args=(
+            ["--input", "127.0.0.1:0", "--output", f"127.0.0.1:{pout}", "--duration", "4",
+             "--device", str(device)],))
+        th.start()
+        t_end = time.monotonic() + 30
+        while not bound:
+            if not th.is_alive() or time.monotonic() > t_end:
+                fail("clients: stereod-torch did not bind its input")
+            time.sleep(0.05)
+    finally:
+        stereod_cli.listen_socket = real_listen
+    pin = bound[0]
     tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     t0 = time.perf_counter()
     for seq, off in enumerate(range(0, comp.size, 700)):
@@ -2579,12 +2601,11 @@ INGEST_WARM, INGEST_DISPATCHES = 1, 8  # the flagship's dispatches (8 blocks eac
 VHF_INGEST_WARM, VHF_INGEST_BLOCKS = 4, 50  # the 2 m feed's (one block each)
 
 
-def bench_ingest_tool():
-    """tools/bench_ingest_torch.py as a module (tools/ is no package)."""
+def tool_module(name: str):
+    """tools/<name>.py as a module (tools/ is no package)."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location("bench_ingest_torch",
-                                                  ROOT / "tools" / "bench_ingest_torch.py")
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2615,9 +2636,11 @@ def ingest_config(conf: Path, section: str, port: int, dport: int, sport: int,
 
 def expected_launches(eng, j0: int, j1: int) -> dict:
     """Kernel A and B launches of the engine's groups over blocks j0..j1-1,
-    every group past its warm-up: A each block in a group that takes the
-    tiled kernel, B on the N0 cadence in each group that estimates N0."""
-    due = sum(1 for b in range(j0, j1) if eng.noise_every == 1 or b % eng.noise_every == 0)
+    every group made with the engine: A each block in a group that takes the
+    tiled kernel, B on the N0 cadence in each group that estimates N0 (and
+    on the first 2 blocks, the groups' warm-up)."""
+    due = sum(1 for b in range(j0, j1)
+              if b < 2 or eng.noise_every == 1 or b % eng.noise_every == 0)
     n_a = n_b = 0
     for g in eng.groups.values():
         if g.spec.demod == "spectrum" and (g.spectrum_wide or not g.host["armed"]):
@@ -2836,7 +2859,7 @@ def run_ingest(card: str, device) -> tuple[dict, dict]:
     pinned and pageable; (b) the flagship config fed at 129.6 Msps; (c)
     the 2 m config's complex 5.12 Msps feed (the I/Q framing). Returns (the
     phase's JSON, A and B at the flagship's ingest)."""
-    tool = bench_ingest_tool()
+    tool = tool_module("bench_ingest_torch")
     t_phase = time.perf_counter()
     out = {"phase": "ingest", "card": card}
     raw = {"paced_8192": tool.bench_raw(FS, INGEST_RAW_S, False, INGEST_FPP),
@@ -2874,6 +2897,99 @@ def run_ingest(card: str, device) -> tuple[dict, dict]:
     out["vhf"] = {**vhf, "kernels": at_vhf}
     out["seconds"] = time.perf_counter() - t_phase
     return out, at
+
+
+# ------------------------------------------- the measuring kit (the twins)
+TOOLS_CONFIGS = ("rx888", "rx888x16", "hf32000", "nbfm400", "wfm", "linear8")
+TOOLS_REPS = 2  # R of bench_torch.measure here (bench_torch.py runs 64)
+# what the kernels line keeps of each check at the tools' shapes
+TOOLS_KEYS = ("max_abs_err", "err_bound", "max_rel_err", "keys_equal", "ms", "plain_ms",
+              "bound_ms", "bound_by", "library_ms", "library_call", "shape")
+TOOLS_HIGHC_S = 10.0  # stream seconds of tools/bench_highc_torch.py (its default: 60)
+TOOLS_MASTER_K, TOOLS_MASTER_REPS = 4, 2  # prof_master_torch's blocks and passes here
+
+
+def run_tools(card: str, device) -> tuple[dict, dict]:
+    """The port's measuring kit on the card, each tool through the function
+    its command line runs: bench_torch.measure (R = TOOLS_REPS, K = 8) on
+    six of bench.py's configurations (finite checksums, A's and B's launches
+    by the port's counters equal to what R x K blocks and the N0 cadence
+    need, the peak device memory), profile_latency_torch at time-shards 0, 4
+    and 16, tools/bench_highc_torch.py in a subprocess (32,768 channels,
+    TOOLS_HIGHC_S s paced: it must exit 0: the tap's tone within 20 Hz of
+    700, no drop, no overflow after warm-up) and prof_master_torch's
+    ablation of the distributed master on make_mesh() and 4 shards of the
+    card. Each configuration's groups also hold A and B against their plain
+    versions at their own shapes (check_kernels on one noise block). Returns
+    (the phase's JSON, per kernel: its launches over the benches and its
+    checks by "config/group")."""
+    import bench_torch
+    import profile_latency_torch
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    out = {"phase": "tools", "card": card, "reps": TOOLS_REPS, "bench": {}}
+    total = {"channelize": 0, "noise_est": 0}
+    at: dict = {"channelize": {}, "noise_est": {}}
+    for config in TOOLS_CONFIGS:
+        t0 = time.perf_counter()
+        eng, _, baseline = bench_torch.build_engine(config)
+        build_s = time.perf_counter() - t0
+        cc.reset_launches()
+        r = bench_torch.measure(eng, reps=TOOLS_REPS)
+        got = {k: cc.launches[k] for k in total}
+        want = expected_launches(eng, 0, r["steps"])
+        out["bench"][config] = {**r, "vs_baseline": r["msps"] / baseline, "engine_s": build_s,
+                                "launches": got, "want_launches": want,
+                                "channels": sum(g.C for g in eng.groups.values())}
+        if got != want or not np.isfinite(r["checksum"]):
+            fail(f"tools bench {config}: launches {got}, want {want}, checksum {r['checksum']}")
+        for k in total:
+            total[k] += got[k]
+        # A and B against their plain versions at this configuration's own
+        # shapes: every group that launches them, on one noise block's F
+        params = eng.init_params()
+        _, F = eng.master_step(eng.init_state()["master"],
+                               noise_blocks(eng, 1, N0_SCENE, device, 30)[0])
+        for name, g in eng.groups.items():
+            if g.spec.demod == "spectrum" and (g.spectrum_wide or not g.host["armed"]):
+                continue
+            for chk in check_kernels(eng, params, F, name):
+                if chk["name"] == "channelize" and not (g.tiled and not g.spec.beam):
+                    continue
+                at[chk["name"]][f"{config}/{name}"] = {k: chk[k] for k in TOOLS_KEYS if k in chk}
+        out["bench"][config]["kernels"] = {kn: {gk: {k: v[k] for k in ("max_abs_err", "ms",
+                                                                       "plain_ms", "bound_ms")}
+                                                for gk, v in per.items()
+                                                if gk.startswith(config + "/")}
+                                           for kn, per in at.items()}
+        del eng, params, F
+        torch.cuda.empty_cache()
+    out["profile_latency"] = [
+        profile_latency_torch.measure(ts, profile_latency_torch.DISPATCHES.get(ts, 20), device,
+                                      loopback=True) for ts in (0, 4, 16)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / "bench_highc_torch.py"),
+                        "--secs", str(TOOLS_HIGHC_S), "--device", "cuda", "--loopback"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=TOOLS_HIGHC_S + 240)
+    last = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    if r.returncode != 0 or not last.startswith("{"):
+        fail(f"tools: bench_highc_torch.py exited {r.returncode}: {last} {r.stderr[-2000:]}")
+    out["bench_highc"] = {**json.loads(last), "seconds": time.perf_counter() - t0}
+    if not out["bench_highc"]["chan_kernel"]:
+        fail(f"tools: kernel A did not carry bench_highc's group: {out['bench_highc']}")
+    pm = tool_module("prof_master_torch")
+    out["prof_master"] = {
+        label: pm.profile(mesh, k=TOOLS_MASTER_K, reps=TOOLS_MASTER_REPS)
+        for label, mesh in (("make_mesh()", make_mesh()), ("4 shards", make_mesh([device] * 4)))}
+    for label, rec in out["prof_master"].items():
+        if not all(np.isfinite(v) and v > 0 for v in rec["ms"].values()):
+            fail(f"tools: prof_master on {label}: {rec['ms']}")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, {k: {"launches": total[k], "checks": at[k]} for k in total}
 
 
 def main() -> None:
@@ -3047,6 +3163,7 @@ def main() -> None:
     for kern in kernels:
         kern["vhf_daemon_launches"] = vd["launches"][kern["name"]]
         kern["vhf_daemon_in_ms"] = vd["kernel_in_daemon_ms"][kern["name"]]
+        kern["at_vhf_daemon"] = vd["kernels"][kern["name"]]
     for name, kern in recur.items():
         kern.update(launches=vd["launches"][name], in_daemon_ms=vd["kernel_in_daemon_ms"][name],
                     at_c400=recur_c400[name])
@@ -3180,6 +3297,14 @@ def main() -> None:
     for kern in kernels[:2]:
         kern["at_ingest"] = at_ing[kern["name"]]
     torch.cuda.empty_cache()
+
+    # phase 19: the measuring kit: the bench, latency, high-C daemon and
+    # master-ablation twins
+    tl, at_tools = run_tools(card, device)
+    emit(tl)
+    for kern in kernels[:2]:
+        kern["tools_launches"] = at_tools[kern["name"]]["launches"]
+        kern["at_tools"] = at_tools[kern["name"]]["checks"]
 
     if "jax" in sys.modules or any(n == "ka9q_radio_tpu" or n.startswith("ka9q_radio_tpu.")
                                    for n in sys.modules):

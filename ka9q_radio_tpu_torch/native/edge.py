@@ -229,6 +229,7 @@ class RtpIngest:
         lib = _load()
         self._lib = lib
         self.width = int(width)
+        self.ring_log2 = int(ring_log2)
         self.fd = lib.rtp_ingest_open(dest[0].encode(), dest[1], int(encoding),
                                       self.width, ssrc or 0, ring_log2,
                                       rcvbuf_mb)

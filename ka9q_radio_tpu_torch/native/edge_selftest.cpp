@@ -8,46 +8,20 @@
 // lifecycle against a loopback socket, then the ingest reader thread with
 // malformed packets and a forced ring wrap. This edge has no paced sender
 // of its own, so the harness sends the ingest traffic itself, from its one
-// thread. tests/test_torch_native.py builds and runs it; a sanitizer
-// report is a non-zero exit.
+// thread. Last, the blocking read's wake-up: a read that is waiting for
+// the packet that completes its request returns as that packet lands, not
+// at its timeout. tests/test_torch_native.py builds and runs it; a
+// sanitizer report or a failed check is a non-zero exit.
 //
 // Build: g++ -std=c++17 -O1 -g -fsanitize=address,undefined \
-//            edge_selftest.cpp rtp_edge.cpp -o edge_selftest -ldl
+//            edge_selftest.cpp -o edge_selftest -ldl -lpthread
 
-#include <cmath>
-#include <cstdint>
-#include <cstdio>
-#include <cstring>
-#include <vector>
+// The harness includes the edge's source, not only its C interface, so
+// that the wake-up check can hold an ingest's mutex (Ingest::m) itself.
+#include "rtp_edge.cpp"
 
-#include <arpa/inet.h>
-#include <netinet/in.h>
-#include <sys/socket.h>
-#include <unistd.h>
-
-extern "C" {
-int rtp_edge_open(const char *ip, int port, int ttl, int tos);
-int rtp_edge_send_ctl(int fd, const uint8_t *buf, int len, int port);
-void rtp_edge_close(int fd);
-int rtp_edge_has_opus(void);
-int rtp_edge_send_block(int fd, const float *audio, int nchan, int nframes,
-                        int nch, const uint8_t *send_flag, const uint32_t *ssrc,
-                        const uint8_t *pt, const int32_t *encoding,
-                        const int32_t *samprate,
-                        const int32_t *opus_bitrate, const uint8_t *opus_dtx,
-                        const int32_t *opus_app,
-                        uint16_t *seq, uint32_t *ts, const uint8_t *marker);
-int rtp_edge_send_indexed(int fd, const float *audio, int nactive,
-                          int nchan_total, int nframes, int nch,
-                          const int32_t *chan_idx, const uint32_t *ssrc,
-                          const uint8_t *pt, const int32_t *encoding,
-                          uint16_t *seq, uint32_t *ts, const uint8_t *marker);
-int rtp_ingest_open(const char *ip, int port, int encoding, int width,
-                    uint32_t ssrc, int ring_log2, int rcvbuf_mb);
-long rtp_ingest_read(int h, float *dst, long nfloats, int timeout_ms);
-void rtp_ingest_stats(int h, long long *out);
-void rtp_ingest_close(int h);
-}
+#include <chrono>
+#include <thread>
 
 static int bound_port(int fd) {
   sockaddr_in sa{};
@@ -198,6 +172,69 @@ int main() {
     if (st[0] < 1 || total < 1) { fprintf(stderr, "no ingest traffic read\n"); return 2; }
     rtp_ingest_close(ih);  // joins the reader thread
     rtp_ingest_close(ih);  // a second close is a no-op
+    close(tx);
+  }
+  // ---- ingest read: the packet that fills a waiting read wakes it ----
+  // The harness holds the ingest's mutex while the read starts (it has
+  // checked the fill, or is about to) and while the filling packet lands,
+  // which puts the reader thread's notify in the window between the read's
+  // check and its wait, every time. A read that checks the fill outside the
+  // mutex misses that notify and sleeps to its 3 s timeout.
+  {
+    int ih = rtp_ingest_open("127.0.0.1", 0, 2 /*s16be*/, 1, 0, 16, 4);
+    if (ih < 0) { fprintf(stderr, "ingest open fail %d\n", ih); return 2; }
+    Ingest *ig = ingest_of(ih);
+    int tx = socket(AF_INET, SOCK_DGRAM, 0);
+    sockaddr_in da{};
+    da.sin_family = AF_INET;
+    da.sin_addr.s_addr = htonl(INADDR_LOOPBACK);
+    da.sin_port = htons((uint16_t)bound_port(ih));
+    const int FPP = 256;
+    auto send_pkt = [&](int k) {
+      std::vector<uint8_t> pkt(12 + 2 * FPP, 0);
+      pkt[0] = 0x80;
+      pkt[1] = 97;
+      pkt[3] = (uint8_t)k;
+      uint32_t ts = (uint32_t)(k * FPP);
+      for (int b = 0; b < 4; b++) pkt[4 + b] = (uint8_t)(ts >> (24 - 8 * b));
+      pkt[11] = 9;
+      sendto(tx, pkt.data(), pkt.size(), 0, (sockaddr *)&da, sizeof da);
+    };
+    auto buffered = [&] {
+      long long st[8];
+      rtp_ingest_stats(ih, st);
+      return st[7];
+    };
+    auto settle = [&](long long want) {
+      for (int i = 0; i < 2000 && buffered() < want; i++) usleep(1000);
+      return buffered() == want;
+    };
+    using clk = std::chrono::steady_clock;
+    for (int rep = 0; rep < 3; rep++) {
+      send_pkt(2 * rep);
+      if (!settle(FPP)) { fprintf(stderr, "first packet not buffered\n"); return 2; }
+      std::vector<float> dst(2 * FPP);
+      long got = -2;
+      clk::time_point done;
+      ig->m.lock();
+      std::thread reader([&] {
+        got = rtp_ingest_read(ih, dst.data(), 2 * FPP, 3000);
+        done = clk::now();
+      });
+      usleep(50000);  // the read is now blocked on the mutex
+      send_pkt(2 * rep + 1);
+      if (!settle(2 * FPP)) { fprintf(stderr, "second packet not buffered\n"); return 2; }
+      clk::time_point freed = clk::now();
+      ig->m.unlock();
+      reader.join();
+      double ms = std::chrono::duration<double, std::milli>(done - freed).count();
+      if (got != 2 * FPP || ms > 500.0) {
+        fprintf(stderr, "lost wake-up: read %ld of %d floats %.1f ms after the fill "
+                "(timeout 3000 ms)\n", got, 2 * FPP, ms);
+        return 3;
+      }
+    }
+    rtp_ingest_close(ih);
     close(tx);
   }
   printf("edge_selftest OK\n");

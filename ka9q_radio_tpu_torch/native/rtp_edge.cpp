@@ -18,6 +18,7 @@
 #include <cerrno>
 #include <cstring>
 #include <cmath>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -510,7 +511,9 @@ struct Ingest {
   bool locked = false;
   // SPSC float ring: producer = reader thread, consumer = read().
   // Monotonic 64-bit positions (in floats); capacity a power of two.
-  std::vector<float> ring;
+  // Left uninitialised (only written floats are read), so its pages are
+  // committed as the stream first fills them, not zero-filled at open.
+  std::unique_ptr<float[]> ring;
   size_t cap = 0;
   std::atomic<uint64_t> wr{0};
   std::atomic<uint64_t> rd{0};
@@ -554,11 +557,11 @@ void ring_write(Ingest &ig, const float *src, size_t n) {
   size_t pos = (size_t)(w & (ig.cap - 1));
   size_t first = std::min(n, ig.cap - pos);
   if (src) {
-    memcpy(ig.ring.data() + pos, src, first * sizeof(float));
-    if (n > first) memcpy(ig.ring.data(), src + first, (n - first) * sizeof(float));
+    memcpy(ig.ring.get() + pos, src, first * sizeof(float));
+    if (n > first) memcpy(ig.ring.get(), src + first, (n - first) * sizeof(float));
   } else {
-    memset(ig.ring.data() + pos, 0, first * sizeof(float));
-    if (n > first) memset(ig.ring.data(), 0, (n - first) * sizeof(float));
+    memset(ig.ring.get() + pos, 0, first * sizeof(float));
+    if (n > first) memset(ig.ring.get(), 0, (n - first) * sizeof(float));
   }
   ig.wr.store(w + n, std::memory_order_release);
 }
@@ -677,6 +680,10 @@ void ingest_loop(Ingest *ig) {
       ig->seq = (uint16_t)(seq + 1);
       ig->ts = ts + (uint32_t)frames;
     }
+    // wr is published; taking the mutex before the notify orders it after
+    // a reader's predicate check, so the wake-up cannot fall between that
+    // check and the reader's wait
+    { std::lock_guard<std::mutex> g(ig->m); }
     ig->cv.notify_one();
   }
 }
@@ -730,7 +737,7 @@ int rtp_ingest_open(const char *ip, int port, int encoding, int width,
   ig->width = width;
   ig->ssrc = ssrc;
   ig->cap = (size_t)1 << ring_log2;
-  ig->ring.resize(ig->cap);
+  ig->ring.reset(new float[ig->cap]);
   ig->run.store(true);
   ig->reader = std::thread(ingest_loop, ig);
   {
@@ -748,24 +755,23 @@ long rtp_ingest_read(int h, float *dst, long nfloats, int timeout_ms) {
   if (!ig || nfloats < 0 || (size_t)nfloats > ig->cap) return -1;
   auto deadline = std::chrono::steady_clock::now() +
                   std::chrono::milliseconds(timeout_ms);
-  size_t have;
-  for (;;) {
-    have = (size_t)(ig->wr.load(std::memory_order_acquire) -
+  auto fill = [ig] {
+    return (size_t)(ig->wr.load(std::memory_order_acquire) -
                     ig->rd.load(std::memory_order_relaxed));
-    if (have >= (size_t)nfloats) break;
+  };
+  {
+    // the fill is checked under the mutex the reader thread takes before
+    // it notifies: a fill published between the check and the wait wakes it
     std::unique_lock<std::mutex> lk(ig->m);
-    if (ig->cv.wait_until(lk, deadline) == std::cv_status::timeout) {
-      have = (size_t)(ig->wr.load(std::memory_order_acquire) -
-                      ig->rd.load(std::memory_order_relaxed));
-      break;
-    }
+    ig->cv.wait_until(lk, deadline, [&] { return fill() >= (size_t)nfloats; });
   }
+  size_t have = fill();
   size_t n = std::min(have, (size_t)nfloats);
   uint64_t r = ig->rd.load(std::memory_order_relaxed);
   size_t pos = (size_t)(r & (ig->cap - 1));
   size_t first = std::min(n, ig->cap - pos);
-  memcpy(dst, ig->ring.data() + pos, first * sizeof(float));
-  if (n > first) memcpy(dst + first, ig->ring.data(), (n - first) * sizeof(float));
+  memcpy(dst, ig->ring.get() + pos, first * sizeof(float));
+  if (n > first) memcpy(dst + first, ig->ring.get(), (n - first) * sizeof(float));
   ig->rd.store(r + n, std::memory_order_release);
   if ((long)n < nfloats) {
     memset(dst + n, 0, ((size_t)nfloats - n) * sizeof(float));

@@ -220,7 +220,7 @@ class _Group:
 
     def __init__(self, spec: GroupSpec, master: MasterConfig, samprate: float, blocktime: float,
                  centers: Sequence[float], noise_every: int, device: torch.device,
-                 mesh: Mesh | None = None, split: bool = False):
+                 mesh: Mesh | None = None, split: bool = False, use_tiled: bool = True):
         self.spec = spec
         self.master = master
         self.fs_in = samprate
@@ -305,7 +305,7 @@ class _Group:
         # masters that are not whole tiles, n_bins^2 >= 2^31 (the 32-bit
         # ramp) and a fold that would wrap twice take the per-element
         # channelizer (a gather and cuFFT)
-        self.tiled = (not spec.beam and not self.spectrum_wide
+        self.tiled = (use_tiled and not spec.beam and not self.spectrum_wide
                       and (master.real or N % _CTILE == 0) and self.n_bins * self.n_bins < 2**31)
         self.tile_E = self.tile_op = None
         if self.tiled:
@@ -894,7 +894,7 @@ class Engine:
                  spurs: Sequence[float] | None = None, fft: str = "auto",
                  fft_precision: str = "high", use_matmul: bool = False, n_inputs: int = 1,
                  device=None, mesh: Mesh | None = None, shard_axis: str = "c",
-                 time_shards: int = 0):
+                 time_shards: int = 0, use_tiled: bool = True):
         """The JAX engine's keywords, where this port has their mechanism.
         fft "auto" or "monolithic" and fft_precision "high" or "exact" run
         cuFFT in FP32 (torch.fft); the MXU cascade and four-step split
@@ -905,7 +905,9 @@ class Engine:
         needs one host per SDR); center: the front-end centre, one for all
         inputs or one per input. mesh, shard_axis, time_shards: the class
         docstring; with a mesh the engine lives on its devices (a device
-        given beside it must be of the same type)."""
+        given beside it must be of the same type). use_tiled=False puts
+        every group on the per-element channelizer (a gather and cuFFT, no
+        kernel A), as JAX's does."""
         fft, fft_precision = str(fft).lower(), str(fft_precision).lower()
         if fft in ("mxu", "split"):
             raise ValueError(f"fft={fft!r} picks the TPU's matmul-cascade master FFT; the port's "
@@ -983,7 +985,8 @@ class Engine:
                            and self.master.L % self.digit.n2 == 0
                            and (self.master.N - self.master.L) % self.digit.n2 == 0)
         self.groups = {g.name: _Group(g, self.master, self.samprate, blocktime, self.centers,
-                                      self.noise_every, self.device, mesh=mesh, split=split)
+                                      self.noise_every, self.device, mesh=mesh, split=split,
+                                      use_tiled=use_tiled)
                        for g in groups}
         # adaptive spur notches on master bins (radio.c:662-683,
         # filter.c:441-453): per spur, a slow complex one-pole tracks the

@@ -92,6 +92,19 @@ class FileSource:
         self._fh.close()
 
 
+#: the native ring's largest size: 2^28 floats (1 GiB), 2.07 s of the
+#: flagship's 129.6 Msps real stream
+RING_LOG2_MAX = 28
+
+
+def ring_log2(samprate: float, width: int, max_buffer_s: float) -> int:
+    """log2 of the native ring's floats: the smallest power of two that holds
+    `max_buffer_s` of stream (what the Python reader keeps), 2^20 to
+    2^RING_LOG2_MAX."""
+    need = max(max_buffer_s * samprate * width, 1.0)
+    return max(20, min(RING_LOG2_MAX, int(np.ceil(np.log2(need)))))
+
+
 class RtpSource:
     """Live A/D ingest from an RTP stream (the network front end).
 
@@ -123,7 +136,13 @@ class RtpSource:
         dest = resolve_dest(stream, DEFAULT_RTP_PORT)
         if native:
             self._native, self.fallback_reason = self._open_native(dest, max_buffer_s)
-            if self._native is None:
+            if self._native is not None:
+                log2 = self._native.ring_log2
+                print(f"RtpSource {stream}: native ring of 2^{log2} floats "
+                      f"({(4 << log2) / 2**20:.0f} MiB, "
+                      f"{(1 << log2) / (self.samprate * self.width):.2f} s of stream)",
+                      file=sys.stderr, flush=True)
+            else:
                 print(f"RtpSource {stream}: the Python reader runs: {self.fallback_reason}",
                       file=sys.stderr, flush=True)
         if self._native is not None:
@@ -143,12 +162,10 @@ class RtpSource:
             return None, f"the native reader does not convert {self.encoding.name}"
         if not native_available():
             return None, "the native edge did not build or load"
-        # ring sized >= 2 * max_buffer_s of stream
-        need = 2.0 * max_buffer_s * self.samprate * self.width
-        log2 = max(20, min(30, int(np.ceil(np.log2(max(need, 1))))))
         try:
             return RtpIngest(dest, encoding=int(self.encoding), width=self.width,
-                             ssrc=self.ssrc or 0, ring_log2=log2), None
+                             ssrc=self.ssrc or 0,
+                             ring_log2=ring_log2(self.samprate, self.width, max_buffer_s)), None
         except Exception as e:  # noqa: BLE001 - any failure leaves the Python reader
             return None, f"the native reader did not open: {e!r}"
 

@@ -191,6 +191,42 @@ class _LazyGroupInfo:
         return v if self._d is None else v[self._d]
 
 
+
+def beacon_plan(classes: list, budget: int) -> list:
+    """Fixed beacon slices for a big group's interval classes.
+
+    `classes` is [(u, channels)] with interval u > 0 blocks. Returns
+    [(channels, per, period, stride, phase)]: on blocks b with
+    b % stride == phase, the class sends the slice k = (b // stride) %
+    period of `per` channels, so each of its channels beacons every
+    stride * period blocks. Unpressed, a class of C_u channels sends
+    ceil(C_u / u) a block and every channel beacons every u blocks. When
+    those add up to more than `budget`, each class keeps one encode a block
+    and the rest of the budget goes in proportion to the remainder of each
+    class's want (largest remainder), so the shares are fixed and sum to
+    the budget; the intervals stretch to ceil(C_u / share). With more
+    classes than the budget, the classes take turns: `budget` of them a
+    block, each with one encode, over stride = ceil(K / budget) blocks."""
+    budget = max(1, budget)
+    want = [-(-len(chans) // u) for u, chans in classes]
+    k = len(classes)
+    if sum(want) <= budget:
+        shares, stride = want, 1
+    elif k <= budget:
+        rest, spare = [w - 1 for w in want], budget - k
+        quota = [r * spare / sum(rest) for r in rest]
+        extra = [int(q) for q in quota]
+        for i in sorted(range(k), key=lambda i: extra[i] - quota[i])[: spare - sum(extra)]:
+            extra[i] += 1
+        shares, stride = [1 + e for e in extra], 1
+    else:
+        shares, stride = [1] * k, -(-k // budget)
+    plan = []
+    for i, ((u, chans), per) in enumerate(zip(classes, shares)):
+        period = max(-(-u // stride), -(-len(chans) // per))
+        plan.append((chans, per, period, stride, i // budget if stride > 1 else 0))
+    return plan
+
 class Radiod:
     """The daemon on one device, over one or several front ends. device None
     means CUDA (and raises where there is none); the tests pass
@@ -328,6 +364,9 @@ class Radiod:
         self.beacon_budget = int(cfg.options.get("beacon-budget", 16))
         self._send_prev: dict[str, np.ndarray] = {}
         self._ginfo: dict[str, Any] = {}  # latest per-group info (big groups)
+        # big groups' beacon plans (beacon_plan), dropped with the
+        # edges and when a channel's STATUS_INTERVAL changes
+        self._beacon_plans: dict[str, list] = {}
         self.egress_overflows = 0  # blocks where open channels > egress slots
         self._dyn_ssrcs: set[int] = set()  # lifetime-scan working set
         # restock auto-provisioning (radio_status.c:92-105 ms-create
@@ -590,6 +629,7 @@ class Radiod:
         channel's encoding/redirect/aggregation settings changed."""
         self._group_dests.clear()
         self._send_prev.clear()  # per-group [C] shapes may have changed
+        self._beacon_plans.clear()
         self._ginfo.clear()
         if not self.edges and self.data_sock is None:
             return
@@ -1479,6 +1519,7 @@ class Radiod:
         # ---- host-side keys ----
         if T.STATUS_INTERVAL in fields:
             ch.update_every = abs(int(fields[T.STATUS_INTERVAL]))
+            self._beacon_plans.pop(ch.group, None)
         if T.SPECTRUM_BASE in fields:
             ch.spectrum_base = float(fields[T.SPECTRUM_BASE])
         if T.SPECTRUM_STEP in fields:
@@ -1950,19 +1991,26 @@ class Radiod:
         """Beacons for a BIG group: a rotating slice per block, at most
         beacon-budget encodes, so every channel still beacons while the
         host cost per block stays bounded — the reference's staggered
-        all-channel-dump discipline (radio_status.c:59-67). The
-        effective interval stretches to ceil(C / budget) blocks when
-        C/update exceeds the budget."""
-        ue = group_chans[0].update_every
-        ue = ue if ue is not None else self.update_every
-        if ue <= 0:
-            return
-        C = len(group_chans)
-        per = min(self.beacon_budget, -(-C // ue))
-        period = -(-C // per)  # blocks per full rotation
-        k = self.blocks % period
-        for ch in group_chans[k * per : (k + 1) * per]:
-            self._send_beacon(self.encode_channel_status(ch), ch)
+        all-channel-dump discipline (radio_status.c:59-67).
+
+        Each channel keeps its own interval (its STATUS_INTERVAL, else the
+        daemon's `update`; 0 sends none). The plan (beacon_plan) is fixed
+        per group until a channel or its interval changes."""
+        plan = self._beacon_plans.get(gname)
+        if plan is None:
+            by_ue: dict[int, list] = {}
+            for ch in group_chans:
+                ue = ch.update_every if ch.update_every is not None else self.update_every
+                if ue > 0:
+                    by_ue.setdefault(ue, []).append(ch)
+            plan = self._beacon_plans[gname] = beacon_plan(sorted(by_ue.items()),
+                                                              self.beacon_budget)
+        for chans, per, period, stride, phase in plan:
+            if self.blocks % stride != phase:
+                continue
+            k = (self.blocks // stride) % period
+            for ch in chans[k * per : (k + 1) * per]:
+                self._send_beacon(self.encode_channel_status(ch), ch)
 
     def _record_block_time(self, dt: float):
         self._t_ring[self._t_n % self._t_ring.size] = dt

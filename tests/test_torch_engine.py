@@ -368,16 +368,23 @@ def test_stereo_egress_compaction_matches_jax(demod):
     np.testing.assert_array_equal(ti["egress_idx"].numpy(), [1, 3])
 
 
+# the port's tools beside the package
+TOOLS = ("tools/bench_ingest_torch.py", "tools/churn_soak_torch.py", "tools/bench_highc_torch.py",
+         "tools/prof_master_torch.py", "bench_torch.py", "profile_latency_torch.py")
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor the JAX
     package, and no source of the port names them (nor chip_smoke.py, the
-    port's churn soak and ingest bench, or its multi-process test worker)."""
+    port's tools (the benches, the churn soak, the latency and master
+    profiles) or its multi-process test worker)."""
     pkg = ROOT / "ka9q_radio_tpu_torch"
     mods = sorted("ka9q_radio_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
                   for p in pkg.rglob("*.py") if p.name != "__init__.py")
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
-            + "import runpy\nrunpy.run_path('tools/bench_ingest_torch.py', run_name='scan')\n"
+            + "import runpy\n"
+            + "".join(f"runpy.run_path('{t}', run_name='scan')\n" for t in TOOLS)
             + "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
               " or n == 'ka9q_radio_tpu' or n.startswith('ka9q_radio_tpu.')]\n"
               "assert not bad, bad\n")
@@ -385,7 +392,6 @@ def test_port_imports_no_jax():
                        timeout=120)
     assert r.returncode == 0, r.stderr
     imp = re.compile(r"^\s*(import|from)\s+(jax|ka9q_radio_tpu)(\.|\s|$)", re.M)
-    tools = [ROOT / "tools" / "churn_soak_torch.py", ROOT / "tools" / "bench_ingest_torch.py"]
-    for src in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py", *tools,
+    for src in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py", *(ROOT / t for t in TOOLS),
                 ROOT / "tests" / "torch_multihost_worker.py"]:
         assert not imp.search(src.read_text()), src

@@ -19,6 +19,7 @@ import pytest
 import ka9q_radio_tpu.native as jnative
 import ka9q_radio_tpu_torch.native as tnative
 from ka9q_radio_tpu_torch.net.rtp import Encoding, RtpHeader, encode_samples
+from ka9q_radio_tpu_torch.runtime import frontends
 from ka9q_radio_tpu_torch.runtime.frontends import RtpSource
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -161,6 +162,61 @@ def test_rtp_source_native_reads_the_ramp():
     np.testing.assert_array_equal(x.real, want)
     np.testing.assert_array_equal(x.imag, want)
     assert st["native"] is True and st["gap_frames"] == 0 and st["packets"] == 3 * L // 512
+
+
+def test_ring_size_at_the_flagship_and_logged(capsys):
+    """The native ring holds max_buffer_s of stream in the smallest power of
+    two, at most 2^28 floats (1 GiB): at the flagship's 129.6 Msps real and
+    RtpSource's default 2 s, 2^28 floats (it was 2^29, 2 GiB, twice the
+    buffer). Opening a source logs the ring's size."""
+    assert frontends.ring_log2(129.6e6, 1, 2.0) == 28
+    assert frontends.ring_log2(129.6e6, 1, 0.5) == 26
+    assert frontends.ring_log2(5.12e6, 2, 2.0) == 25
+    assert frontends.ring_log2(1e3, 1, 2.0) == 20
+    assert (1 << frontends.ring_log2(129.6e6, 1, 2.0)) >= 2.0 * 129.6e6
+    src = RtpSource(f"127.0.0.1:{_free_port()}", samprate=1e6, real=False, native=True)
+    try:
+        assert src.stats()["native"] is True
+    finally:
+        src.close()
+    err = capsys.readouterr().err
+    assert "native ring of 2^22 floats (16 MiB, 2.10 s of stream)" in err, err
+
+
+def test_blocked_read_wakes_on_the_filling_packet():
+    """A read blocked with a 5 s timeout returns within a few ms of the
+    packet that completes it, 40 times over: a wake-up lost between the
+    read's fill check and its wait would leave it asleep to the timeout,
+    since no later packet comes. (The sanitizer harness forces that window
+    every time: tests/test_torch_native.py.)"""
+    port, fpp = _free_port(), 256
+    ing = tnative.RtpIngest(("127.0.0.1", port), encoding=int(Encoding.S16BE), width=1,
+                            ring_log2=20)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    payload = encode_samples(np.zeros(fpp, np.float32), Encoding.S16BE)
+
+    def send(k):
+        hdr = RtpHeader(ssrc=7, seq=k, timestamp=k * fpp, type=97)
+        tx.sendto(hdr.pack() + payload, ("127.0.0.1", port))
+
+    waits = []
+    try:
+        for rep in range(40):
+            send(2 * rep)
+            got, done = [], []
+            t = threading.Thread(target=lambda: (got.append(ing.read(2 * fpp, timeout=5.0)[1]),
+                                                 done.append(time.monotonic())))
+            t.start()
+            time.sleep(0.002 * (rep % 5))  # land the filling packet at varied points
+            t_send = time.monotonic()
+            send(2 * rep + 1)
+            t.join(timeout=10.0)
+            assert not t.is_alive() and got == [2 * fpp]
+            waits.append(done[0] - t_send)
+    finally:
+        tx.close()
+        ing.close()
+    assert max(waits) < 1.0, sorted(waits)[-5:]
 
 
 def test_rtp_source_fallback_is_not_silent(capsys):

@@ -16,8 +16,7 @@ def test_edge_sanitizers(tmp_path):
     try:
         subprocess.run(
             ["g++", "-std=c++17", "-O1", "-g", "-fsanitize=address,undefined",
-             os.path.join(d, "edge_selftest.cpp"), os.path.join(d, "rtp_edge.cpp"),
-             "-o", str(exe), "-ldl"],
+             os.path.join(d, "edge_selftest.cpp"), "-o", str(exe), "-ldl", "-lpthread"],
             check=True, capture_output=True, timeout=120)
     except (OSError, subprocess.CalledProcessError) as e:
         pytest.skip(f"sanitizer toolchain unavailable: {e}")

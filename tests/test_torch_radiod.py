@@ -31,7 +31,7 @@ from ka9q_radio_tpu.runtime.radiod import Radiod as JRadiod
 from ka9q_radio_tpu_torch.config import load_config as tload
 from ka9q_radio_tpu_torch.net.rtp import Encoding, RtpHeader, decode_samples
 from ka9q_radio_tpu_torch.net.status import StatusType as T
-from ka9q_radio_tpu_torch.net.status import decode_status, encode_status
+from ka9q_radio_tpu_torch.net.status import PacketType, decode_status, encode_status
 from ka9q_radio_tpu_torch.runtime import radiod as tradiod
 from ka9q_radio_tpu_torch.runtime import state_from_jax
 from test_radiod import CONF
@@ -288,6 +288,96 @@ def test_big_group_egress_matches_jax():
     assert_same_sent(jr._sent, tr._sent)
     late = {int.from_bytes(p[8:12], "big") for k, p in tr._sent[-30:] if k == "data"}
     assert late == {60}
+
+
+@pytest.mark.parametrize("budget", [16, 2])
+def test_big_group_beacons_keep_each_channels_interval(budget):
+    """A big group (8 channels, big-group 4, update 2) with mixed
+    STATUS_INTERVAL overrides on the native edge: the channel whose beacons
+    are off (ssrc 50) sends none, the one set to 5 blocks (ssrc 70) beacons
+    every 5th block, the others every 2nd, and no block encodes more than
+    beacon-budget. With a budget of 2 the intervals stretch to fit. The JAX
+    daemon takes the first channel's interval for all (its fault, kept
+    there); wherever both beacon a channel in the same block, the status
+    is JAX's field for field but for the channel's count of them."""
+    tag = f"torch-beacon-{os.getpid()}-{budget}"
+    conf = BIG.replace("big-group = 4", f"big-group = 4\nbeacon-budget = {budget}\n"
+                       f"status = {tag}.local\ndata = {tag}-pcm.local\n"
+                       "advertise = no\nsap = no\nttl = 0")
+    jr = JRadiod(jload(conf), use_network=True)
+    tr = tradiod.Radiod(tload(conf), use_network=True, device="cpu")
+    assert "hf" in tr.edges and "hf" in jr.edges
+    seen = {}
+    for rd in (jr, tr):
+        for ssrc, every in ((50, 0), (70, 5)):
+            rd.handle_packet(encode_status({T.OUTPUT_SSRC: ssrc, T.COMMAND_TAG: ssrc,
+                                            T.STATUS_INTERVAL: every}, cmd=True))
+        sent = seen[id(rd)] = []
+        rd._send_beacon = lambda pkt, ch=None, rd=rd, sent=sent: sent.append(
+            (rd.blocks, ch.ssrc, pkt))
+    _step_both(jr, tr, 20, np.random.default_rng(41), real=True, carrier=60_700.0)
+    tsent, jsent = seen[id(tr)], seen[id(jr)]
+    per_block = {}
+    for b, ssrc, _ in tsent:
+        per_block.setdefault(b, []).append(ssrc)
+    assert max(len(v) for v in per_block.values()) <= budget
+    blocks_of = {s: [b for b, ss, _ in tsent if ss == s] for s in range(40, 120, 10)}
+    assert blocks_of[50] == []
+    gaps = {s: set(np.diff(v)) for s, v in blocks_of.items() if s != 50}
+    if budget == 16:
+        assert gaps[70] == {5} and all(gaps[s] == {2} for s in gaps if s != 70), gaps
+    else:  # 6 channels of interval 2 and one of 5 share 2 encodes a block
+        assert gaps[70] == {5} and all(gaps[s] == {6} for s in gaps if s != 70), gaps
+    both = {(b, s): p for b, s, p in jsent}
+    common = [(p, both[b, s]) for b, s, p in tsent if (b, s) in both]
+    assert len(common) >= 5
+    for pt, pj in common:
+        # the count of the channel's status packets so far follows the
+        # cadence, which is what differs
+        assert_same_status(*(_without(p, T.OUTPUT_METADATA_PACKETS) for p in (pj, pt)))
+
+
+@pytest.mark.parametrize("budget,counts,intervals", [
+    # 32,766 channels at update 25, one overridden to 50 and one to 100
+    (16, {25: 32766, 50: 1, 100: 1}, {25: 2341, 50: 50, 100: 100}),
+    (3, {2: 30, 4: 4, 9: 1}, {2: 30, 4: 4, 9: 9}),
+    # more intervals than the budget: the classes take turns
+    (2, {2: 4, 3: 2, 5: 1, 7: 1}, {2: 8, 3: 4, 5: 6, 7: 8}),
+])
+def test_big_group_beacons_under_budget_pressure(budget, counts, intervals):
+    """Three or more beacon intervals whose slices exceed beacon-budget:
+    every channel whose beacons are on beacons at one fixed interval, never
+    faster than its own, no block encodes more than the budget, and the
+    off channel sends none."""
+    from types import SimpleNamespace as NS
+    chans = [NS(update_every=u, ssrc=i) for i, u in
+             enumerate(u for u, n in counts.items() for _ in range(n))]
+    chans.append(NS(update_every=0, ssrc=len(chans)))
+    sent = []
+    rd = NS(blocks=0, update_every=25, beacon_budget=budget, _beacon_plans={},
+            encode_channel_status=lambda ch: b"",
+            _send_beacon=lambda pkt, ch: sent.append((rd.blocks, ch.ssrc)))
+    nb = 3 * max(intervals.values())
+    for rd.blocks in range(nb):
+        tradiod.Radiod._staggered_beacons(rd, "g", chans)
+    per_block = np.bincount([b for b, _ in sent], minlength=nb)
+    assert per_block.max() <= budget
+    blocks_of: dict[int, list] = {}
+    for b, s in sent:
+        blocks_of.setdefault(s, []).append(b)
+    assert chans[-1].ssrc not in blocks_of
+    silent = {ch.update_every for ch in chans[:-1] if len(blocks_of.get(ch.ssrc, [])) < 2}
+    assert not silent, f"intervals whose channels did not beacon twice: {silent}"
+    for ch in chans[:-1]:
+        got = blocks_of[ch.ssrc]
+        assert set(np.diff(got)) == {intervals[ch.update_every]}, (ch.update_every, got[:4])
+        assert intervals[ch.update_every] >= ch.update_every
+
+
+def _without(pkt: bytes, field) -> bytes:
+    ptype, f, _ = decode_status(pkt)
+    f.pop(field)
+    return encode_status(f, cmd=ptype == PacketType.CMD)
 
 
 @pytest.mark.parametrize("fields,demod", [

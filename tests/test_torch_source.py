@@ -3,6 +3,11 @@ blocks agree within 1e-6 of the amplitude over 4 blocks (carrier, FM and AM,
 real and complex). The noise streams are different draws (torch.Generator
 against JAX's PRNG), so with noise on only the power is compared, within
 2%."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import jax
 import pytest
@@ -89,3 +94,42 @@ def test_siggen_defaults_to_cuda():
         pytest.skip("a CUDA device is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         tsrc.siggen_init(_cfgs(tsrc, True))
+
+
+_FIRST_BLOCK = r"""
+import sys
+import numpy as np
+import torch
+from ka9q_radio_tpu_torch.runtime import source as tsrc
+from ka9q_radio_tpu_torch.ops.osc import rev_to_q32
+fs, L, real = float(sys.argv[1]), int(sys.argv[2]), sys.argv[3] == "real"
+cfg = tsrc.SigGenConfig(samprate=fs, real=real, carrier_hz=201_345.6, amplitude=0.1)
+b = tsrc.siggen_block(cfg, tsrc.siggen_init(cfg, device="cpu"), L)[1].numpy()
+q = (np.arange(L, dtype=np.int64) * int(rev_to_q32(cfg.carrier_hz / fs))
+     + 2**31) % 2**32 - 2**31
+w = (q.astype(np.float32) * np.float32(2.0**-32) * np.float32(2 * np.pi)).astype(np.float64)
+ref = cfg.amplitude * np.exp(1j * w)
+print(float(np.abs(b - (ref.real if real else ref)).max()))
+"""
+
+
+def test_first_block_of_a_fresh_process_matches_float64():
+    """A fresh process's first source.py block (its first CPU cos/sin, split
+    over the default OpenMP threads) is held to float64 at this file's bound,
+    1e-6 of the amplitude. Without the package's guard (`ops/__init__.py`)
+    about one process in eight came back wrong by up to 1.5e-4 in whole
+    OpenMP chunks, so 32 processes, 8 at a time, all have to pass."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(Path(__file__).resolve().parents[1]), os.environ.get("PYTHONPATH", "")])}
+    errs = []
+    for batch in range(4):
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _FIRST_BLOCK, str(FS), str(L),
+             "real" if (batch + i) % 2 else "complex"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(8)]
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err[-2000:]
+            errs.append(float(out.split()[-1]))
+    assert max(errs) <= 1e-6 * 0.1, errs

@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import json
 import socket
-import subprocess
 import sys
 import threading
 import time
@@ -169,17 +168,6 @@ def accounting(sent: int, read_floats: int, st: dict, width: int) -> dict:
             "accounting_ok": sent == read + st["overrun_frames"] + buffered}
 
 
-def card() -> str | None:
-    """nvidia-smi's name and power limit of the first card, None without one."""
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=30).stdout.strip().splitlines()
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out[0].strip() if out else None
-
-
 def bench_raw(fs: float, secs: float, flat: bool, frames_per_pkt: int = 704,
               width: int = 1, encoding: int = S16BE, check: bool = True) -> dict:
     """ingest_blast -> RtpIngest on 127.0.0.1 for secs of stream at fs
@@ -265,6 +253,7 @@ def bench_daemon(fs: float, secs: float, channels: int, shards: int, device: str
     secs of stream timed; then the sender's end and the frame accounting."""
     import torch
 
+    from bench_torch import card
     from ka9q_radio_tpu_torch.config import load_config
     from ka9q_radio_tpu_torch.native import ingest_blast
     from ka9q_radio_tpu_torch.runtime.radiod import Radiod
