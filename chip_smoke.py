@@ -73,10 +73,19 @@ complex 5.12 Msps [vhf-feed] (the first timed dispatch's block on the card
 equal to the ramp bit for bit, A and B by their counters, finite outputs,
 the channels' RTP audio, the frames sent = read + dropped + still
 buffered; achieved Msps, margin, block times and the host split reported).
+Then the `graphs` phase, the compiled dispatch (runtime/graphs.py GraphStep:
+each dispatch one CUDA graph replay, the twin of the JAX package's jit):
+bench.py's rx888, rx888x4, nbfm400, wfm, hf32000 and linear8 and the odd
+master, each as graph replays beside its eager step from the same state
+(12 blocks bit for bit with a retune and the sweep disarmed, the launch
+counts equal; ms and enqueue ms a block each way, the device's idle share,
+captures, capture ms, pool MB, eager blocks by reason), and
+profile_latency_torch at time-shards 0, 4 and 16 (its daemon's dispatch as
+graph replays). Every daemon phase dispatches as graph replays (a mesh
+eagerly).
 Then the `tools` phase, the measuring kit: bench_torch.measure on six of
 bench.py's configurations (rx888, rx888x16, hf32000, nbfm400, wfm, linear8:
 finite output, A and B by the counters, peak device memory),
-profile_latency_torch at time-shards 0, 4 and 16,
 tools/bench_highc_torch.py for 10 s in a subprocess (it must exit 0), and
 tools/prof_master_torch.py's ablation on 1 and 4 shards of the card.
 
@@ -122,10 +131,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
-    """One JSON line; a phase's line says how its event_ms calls were timed."""
+    """One JSON line; a phase's line says how its event_ms calls were timed,
+    and when it ended (t_s: seconds since the script started)."""
     if "phase" in obj and (TIMING["graph"] or TIMING["back_to_back"]):
         obj = {**obj, **timing_note()}
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -962,7 +977,7 @@ def run_daemon(card: str, device) -> tuple[dict, dict, object]:
            "tone_samples": int(n1), "retune_tone_hz": peak2, "retune_samples": int(n2),
            "egress_count_max": max_count[0], "egress_overflows": rd.egress_overflows,
            "block_drops": rd.block_drops, "other_ssrcs_heard": sorted(others)[:20],
-           "launches": launches, "due_blocks": due}
+           "launches": launches, "due_blocks": due, "graphs": daemon_graphs(rd)}
     if abs(peak1 - 1500.0) > 10.0:
         fail(f"daemon: the carrier's channel peaks at {peak1} Hz, want 1500")
     if not send_k or n1 == 0:
@@ -2899,6 +2914,173 @@ def run_ingest(card: str, device) -> tuple[dict, dict]:
     return out, at
 
 
+# ------------------------------------------------- the compiled dispatch
+GRAPH_CELLS = ("rx888", "rx888x4", "nbfm400", "wfm", "odd_master", "hf32000", "linear8")
+GRAPH_CHECK = 12  # blocks held bit for bit, replay against the eager step
+# blocks timed each way (the engine phases time 64: the cut keeps the script
+# inside its time) and graph dispatches traced (the trace's first block
+# loses its events: with 8, a later block is N0-due and B is seen)
+GRAPH_TIMED, GRAPH_TRACED = 32, 8
+
+
+def graph_summary(stats: dict) -> dict:
+    """What a phase's line keeps of GraphStep.graph_stats(): the dispatch,
+    captures and their ms, replays, eager blocks by reason, copies in, and
+    per graph its pool MB and launches a replay."""
+    return {"dispatch": stats["dispatch"], "captures": stats["captures"],
+            "capture_ms": stats["capture_ms"], "replays": stats["replays"],
+            "eager_blocks": stats["eager_blocks"], "state_copies_in": stats["state_copies_in"],
+            "pool_mb": {k: None if g["pool_bytes"] is None else g["pool_bytes"] / 2**20
+                        for k, g in stats["graphs"].items()},
+            "launches_per_replay": {k: g["launches"] for k, g in stats["graphs"].items()}}
+
+
+def daemon_graphs(rd) -> dict:
+    """A daemon's graph_summary, with the totals of its engines before
+    (rebuilds and restocks)."""
+    st = rd.graph_stats()
+    return {**(graph_summary(st["current"]) if st["current"] else {"dispatch": "eager (mesh)"}),
+            "engines_before": st["before"]}
+
+
+def graph_cell(rt, config: str, device, out_dir: Path) -> dict:
+    """One engine cell eager and as CUDA graph replays (GraphStep), from the
+    same state, params and noise blocks: GRAPH_CHECK blocks side by side
+    (a retune after 4, the sweep disarmed for blocks 6-7 where there is
+    one) held bit for bit, outputs, state and host mirrors, with the launch
+    counters equal; then GRAPH_TIMED blocks each way under sync-debug
+    "error" (CUDA events: ms a block; the host's clock: the enqueue), and
+    GRAPH_TRACED graph dispatches under the profiler for the device's busy
+    ms (the same kernels as the eager step's: both idle shares use it) and
+    kernels A's and B's device ms a launch inside the replays."""
+    import bench_torch
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.runtime.graphs import GraphStep, _flatten
+
+    t0 = time.perf_counter()
+    if config == "odd_master":
+        eng, source = (rt.Engine(samprate=ODD_FS, real=False, groups=odd_master_groups(rt)),
+                       "bench.py nbfm400 layout at 2.4 Msps (the odd_master phase's)")
+    else:
+        eng, source = bench_torch.build_engine(config)[0], f"bench.py {config}"
+    build_s = time.perf_counter() - t0
+    n0 = N0_SCENE if eng.master.real else NBFM_N0
+    blocks = noise_blocks(eng, GRAPH_CHECK + GRAPH_TIMED + GRAPH_TRACED, n0, device, 41)
+    params = eng.init_params()
+    gs = GraphStep(eng)
+    se, sg = eng.init_state(), eng.init_state()
+    launches = {"eager": dict.fromkeys(cc.launches, 0), "graph": dict.fromkeys(cc.launches, 0)}
+    differ = []
+
+    def leaves(out, state):
+        return ([(("out",) + p, v) for p, v in _flatten(out)]
+                + [(("state",) + p, v) for p, v in _flatten(state, skip_host=True)])
+
+    t0 = time.perf_counter()
+    for b in range(GRAPH_CHECK):
+        if b == 4:
+            g0 = next(iter(eng.groups.values()))
+            eng.retune(params, g0.spec.name, 0, float(g0.spec.channels[0].freq) + 500.0)
+        if "sweep" in eng.groups and b in (6, 8):
+            eng.set_armed(params, "sweep", b == 8)
+        for mode in ("eager", "graph"):
+            cc.reset_launches()
+            if mode == "eager":
+                se, oe = gs.eager(se, params, blocks[b])
+            else:
+                sg, og = gs(sg, params, blocks[b])
+            torch.cuda.synchronize()
+            for k, v in cc.launches.items():
+                launches[mode][k] += v
+        got, want = leaves(og, sg), dict(leaves(oe, se))
+        if [w for w, _ in got] != list(want):
+            differ.append([b, "tree structure", None])
+        for w, a in got:
+            c = want.get(w)
+            if c is None or a.shape != c.shape or not torch.equal(a, c):
+                differ.append([b, w, None if c is None or a.shape != c.shape
+                               else float((a.to(c.dtype) - c).abs().max())])
+        if sg["host"] != se["host"]:
+            differ.append([b, "host", None])
+    check_s = time.perf_counter() - t0
+    if differ or launches["eager"] != launches["graph"]:
+        fail(f"graphs {config}: replay differs from the eager step at {differ[:8]}; launches "
+             f"{launches}")
+
+    def timed(step, st):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t = time.perf_counter()
+            e0.record()
+            for b in range(GRAPH_CHECK, GRAPH_CHECK + GRAPH_TIMED):
+                st, out = step(st, params, blocks[b])
+            e1.record()
+            host = (time.perf_counter() - t) * 1e3 / GRAPH_TIMED
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return st, out, e0.elapsed_time(e1) / GRAPH_TIMED, host
+
+    se, oe, eager_ms, eager_enq = timed(gs.eager, se)
+    sg, og, graph_ms, graph_enq = timed(gs, sg)
+    finite = outputs_finite(og) and outputs_finite(oe)
+    j = GRAPH_CHECK + GRAPH_TIMED
+
+    def body():
+        nonlocal sg
+        for b in range(j, j + GRAPH_TRACED):
+            sg, _ = gs(sg, params, blocks[b])
+
+    _, kern, _, note = traced(body, f"graphs {config}")
+    busy = sum(ev.time_range.elapsed_us() for ev in kern) / 1e3 / GRAPH_TRACED
+    stats = gs.graph_stats()
+    out = {"source": source, "channels": sum(g.C for g in eng.groups.values()),
+           "inputs": eng.n_inputs, "engine_s": build_s, "check_s": check_s,
+           "bit_equal_blocks": GRAPH_CHECK, "launches": launches["graph"],
+           "eager_launches": launches["eager"],
+           "ms_per_block": {"graph": graph_ms, "eager": eager_ms},
+           "enqueue_ms_per_block": {"graph": graph_enq, "eager": eager_enq},
+           "msps": {"graph": eng.n_inputs * eng.L / graph_ms / 1e3,
+                    "eager": eng.n_inputs * eng.L / eager_ms / 1e3},
+           "busy_ms_per_block": busy, "kernels_per_block": len(kern) / GRAPH_TRACED,
+           "kernel_in_graph_ms": per_launch_ms(kern, KERNEL_NAMES),
+           "device_idle_share": {"graph": 1.0 - busy / graph_ms if kern else None,
+                                 "eager": 1.0 - busy / eager_ms if kern else None},
+           "finite": finite, **graph_summary(stats), **note}
+    if not finite or stats["replays"] < GRAPH_CHECK + GRAPH_TIMED - 2:
+        fail(f"graphs {config}: finite {finite}, {stats['replays']} replays, eager blocks "
+             f"{stats['eager_blocks']}")
+    gs.reset()
+    return out
+
+
+def run_graphs(rt, card: str, device, out_dir: Path) -> tuple[dict, dict]:
+    """The compiled dispatch on the card: each engine cell of GRAPH_CELLS
+    eager and as CUDA graph replays (graph_cell), then
+    profile_latency_torch's daemon at time-shards 0, 4 and 16 (the tool's
+    own dispatch counts), its dispatch as graph replays. Returns (the
+    phase's JSON, per kernel its launches in the cells' graph runs)."""
+    import profile_latency_torch
+
+    t_phase = time.perf_counter()
+    out = {"phase": "graphs", "card": card, "cells": {},
+           "reduced": {"timed_blocks": f"{GRAPH_TIMED} each way (the engine phases: 64)"}}
+    total = {"channelize": 0, "noise_est": 0}
+    for config in GRAPH_CELLS:
+        out["cells"][config] = cell = graph_cell(rt, config, device, out_dir)
+        for k in total:
+            total[k] += cell["launches"][k]
+        torch.cuda.empty_cache()
+    out["profile_latency"] = [
+        profile_latency_torch.measure(ts, profile_latency_torch.DISPATCHES.get(ts, 20), device,
+                                      loopback=True) for ts in (0, 4, 16)]
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, total
+
+
 # ------------------------------------------- the measuring kit (the twins)
 TOOLS_CONFIGS = ("rx888", "rx888x16", "hf32000", "nbfm400", "wfm", "linear8")
 TOOLS_REPS = 2  # R of bench_torch.measure here (bench_torch.py runs 64)
@@ -2914,8 +3096,8 @@ def run_tools(card: str, device) -> tuple[dict, dict]:
     its command line runs: bench_torch.measure (R = TOOLS_REPS, K = 8) on
     six of bench.py's configurations (finite checksums, A's and B's launches
     by the port's counters equal to what R x K blocks and the N0 cadence
-    need, the peak device memory), profile_latency_torch at time-shards 0, 4
-    and 16, tools/bench_highc_torch.py in a subprocess (32,768 channels,
+    need, the peak device memory; the step as CUDA graph replays),
+    tools/bench_highc_torch.py in a subprocess (32,768 channels,
     TOOLS_HIGHC_S s paced: it must exit 0: the tap's tone within 20 Hz of
     700, no drop, no overflow after warm-up) and prof_master_torch's
     ablation of the distributed master on make_mesh() and 4 shards of the
@@ -2924,7 +3106,6 @@ def run_tools(card: str, device) -> tuple[dict, dict]:
     (the phase's JSON, per kernel: its launches over the benches and its
     checks by "config/group")."""
     import bench_torch
-    import profile_latency_torch
     from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
     from ka9q_radio_tpu_torch.parallel import make_mesh
 
@@ -2966,10 +3147,6 @@ def run_tools(card: str, device) -> tuple[dict, dict]:
                                            for kn, per in at.items()}
         del eng, params, F
         torch.cuda.empty_cache()
-    out["profile_latency"] = [
-        profile_latency_torch.measure(ts, profile_latency_torch.DISPATCHES.get(ts, 20), device,
-                                      loopback=True) for ts in (0, 4, 16)]
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, str(ROOT / "tools" / "bench_highc_torch.py"),
                         "--secs", str(TOOLS_HIGHC_S), "--device", "cuda", "--loopback"],
@@ -3298,7 +3475,16 @@ def main() -> None:
         kern["at_ingest"] = at_ing[kern["name"]]
     torch.cuda.empty_cache()
 
-    # phase 19: the measuring kit: the bench, latency, high-C daemon and
+    # phase 19: the compiled dispatch: each engine cell as CUDA graph
+    # replays against its eager step, and the daemon's dispatch latency
+    gr, at_graphs = run_graphs(rt, card, device, out_dir)
+    emit(gr)
+    for kern in kernels[:2]:
+        kern["graph_launches"] = at_graphs[kern["name"]]
+        kern["in_graph_ms"] = {c: v["kernel_in_graph_ms"][kern["name"]]
+                               for c, v in gr["cells"].items()}
+
+    # phase 20: the measuring kit: the bench, high-C daemon and
     # master-ablation twins
     tl, at_tools = run_tools(card, device)
     emit(tl)

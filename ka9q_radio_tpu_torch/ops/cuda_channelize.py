@@ -32,7 +32,9 @@ how).
 
 A wrapper given CPU tensors runs the plain version: that is the CPU path of
 the port. Given CUDA tensors it launches its kernel or raises; it never
-falls back. Each launch adds one to `launches[name]`.
+falls back. Each launch adds one to `launches[name]`, or, inside
+`recording()` in the same thread, to that block's own count (a CUDA graph's
+capture records what its replays add: runtime/graphs.py).
 
 The sources build at first use with nvcc into a shared library with a plain
 C interface (loaded through ctypes), one nvcc per source, all started
@@ -41,11 +43,13 @@ build/torch_kernels/ at the root of the checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -56,7 +60,7 @@ from .filterbank import _CTILE, tiled_channelize
 from .noise import (N_CUTOFF, _quantile_terms, estimate_noise_keys, gather_noise_bins,
                     noise_correction, noise_window_fits)
 
-__all__ = ["launches", "reset_launches", "build", "cuda_channelize", "cuda_noise_est",
+__all__ = ["launches", "reset_launches", "recording", "build", "cuda_channelize", "cuda_noise_est",
            "channelize_operand", "fold_pad", "round_tf32", "SOURCES", "REPLACES"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -90,11 +94,25 @@ _KC, _COLS = 32, 64
 
 launches = {name: 0 for name in _KERNELS}
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+_local = threading.local()  # this thread's recording() count, if any
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches inside the block in the dict it yields,
+    not in `launches`: a CUDA graph's capture (whose replays add them) and
+    its warm-up run, while other threads' launches count as usual."""
+    prev = getattr(_local, "count", None)
+    _local.count = dict.fromkeys(launches, 0)
+    try:
+        yield _local.count
+    finally:
+        _local.count = prev
 
 
 def _nvcc() -> str:
@@ -163,7 +181,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
         rc = _fn(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {rc}")
-    launches[name] += 1
+    count = getattr(_local, "count", None)
+    (launches if count is None else count)[name] += 1
 
 
 def fold_pad(n_bins: int) -> int:

@@ -18,6 +18,7 @@
 from __future__ import annotations
 
 import math
+import numbers
 
 import numpy as np
 import torch
@@ -34,11 +35,13 @@ def first_order_scan(c, d: torch.Tensor, y0, axis: int = -1) -> torch.Tensor:
     `axis` removed. The initial condition folds into the first input
     (d[0] += c[0] y0); then each of ceil(log2 T) steps combines every pair
     (c_a, d_a), (c_b, d_b) a stride apart into (c_a c_b, d_a c_b + d_b).
+    A Python number for c or y0 is filled on d's device, never copied from
+    the host, so the scan can be captured in a CUDA graph.
     """
     d = torch.as_tensor(d)
-    c = torch.broadcast_to(torch.as_tensor(c, dtype=d.dtype, device=d.device), d.shape)
+    c = torch.broadcast_to(_on(c, d), d.shape)
     d, c = torch.movedim(d, axis, -1), torch.movedim(c, axis, -1)
-    y0 = torch.as_tensor(y0, dtype=d.dtype, device=d.device)
+    y0 = _on(y0, d)
     d = torch.cat([d[..., :1] + c[..., :1] * y0[..., None], d[..., 1:]], dim=-1)
     T = d.shape[-1]
     k = 1
@@ -49,9 +52,17 @@ def first_order_scan(c, d: torch.Tensor, y0, axis: int = -1) -> torch.Tensor:
     return torch.movedim(d, -1, axis)
 
 
+def _on(v, like: torch.Tensor) -> torch.Tensor:
+    """v as a tensor of like's dtype on like's device: a number filled
+    there (no host-to-device copy), a tensor or an array cast there."""
+    if isinstance(v, numbers.Number):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
 def ema_smooth(x: torch.Tensor, alpha, y0, axis: int = -1) -> torch.Tensor:
     """Exponential smoother y[n] = y[n-1] + alpha (x[n] - y[n-1])."""
-    alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+    alpha = _on(alpha, x)
     return first_order_scan(1.0 - alpha, alpha * x, y0, axis=axis)
 
 

@@ -215,6 +215,16 @@ def _tree_to(tree, dev: torch.device):
     return tree.to(dev, non_blocking=dev.type == "cuda") if torch.is_tensor(tree) else tree
 
 
+def _copy_leaves(params, host) -> None:
+    """Write a tree of host mirrors into the params placed from it, leaf by
+    leaf in place (a tensor, or a Sharded leaf's shards)."""
+    for k, v in host.items():
+        if isinstance(v, dict):
+            _copy_leaves(params[k], v)
+        else:
+            params[k].copy_(torch.from_numpy(np.asarray(v)))
+
+
 class _Group:
     """Host-side geometry, host mirrors and device params of one GroupSpec."""
 
@@ -631,15 +641,26 @@ class _Group:
                             self.spec.bin_count)
         info = {"bin_data": bins, "baseband_power": bins.sum(-1),
                 "n0": torch.zeros((self.C,), dtype=torch.float32, device=block.device)}
-        new_host = dict(host, frames=host["frames"] + self.wide_geo.frames_per_block)
         return ({"dc": state["dc"], "demod": demod_state},
-                torch.zeros((self.C, 0), dtype=torch.float32, device=block.device), info, new_host)
+                torch.zeros((self.C, 0), dtype=torch.float32, device=block.device), info,
+                self.host_after(host))
 
     def _next_host(self, host: dict) -> dict:
         new_host = dict(host, warmup=max(host["warmup"] - 1, 0))
         if self.spec.demod == "spectrum":
             new_host["frames"] = host["frames"] + self.spectrum_geo.frames_per_block
         return new_host
+
+    def host_after(self, host: dict) -> dict:
+        """This group's host mirrors after one step(), without running it: a
+        disarmed spectrum group keeps them, a wide one counts its frames,
+        the rest count down the warm-up (and a narrowband spectrum's
+        frames)."""
+        if self.spec.demod == "spectrum" and not self.host["armed"]:
+            return host
+        if self.spectrum_wide:
+            return dict(host, frames=host["frames"] + self.wide_geo.frames_per_block)
+        return self._next_host(host)
 
     def step(self, state, params, F, block, jobnum: int, host: dict):
         """One block for this group. jobnum: host block counter (before this
@@ -1039,6 +1060,13 @@ class Engine:
     def init_params(self):
         return {n: g.params for n, g in self.groups.items()}
 
+    def advance_host(self, host: dict) -> dict:
+        """The state's host mirrors after one step(), computed on the host
+        alone: what a compiled step (runtime/graphs.py) returns beside the
+        state its graph wrote."""
+        return {"jobnum": host["jobnum"] + 1,
+                "groups": {n: g.host_after(host["groups"][n]) for n, g in self.groups.items()}}
+
     def retune(self, params, group: str, idx: int, freq: float):
         """Retune one channel in place; returns params (nothing rebuilt)."""
         self.groups[group].retune(params[group], idx, freq)
@@ -1060,9 +1088,10 @@ class Engine:
     def adopt_host_params(self, old: "Engine"):
         """Copy the per-channel host params a previous engine's commands
         tweaked into this one (the channel-table rebuild path): groups of
-        the same name keep their leading rows. Returns this engine's fresh
-        device params, built from the adopted host mirrors (placed on the
-        mesh, on a sharded engine)."""
+        the same name keep their leading rows. Returns this engine's device
+        params, the adopted host mirrors written into them in place, so
+        that a compiled step (runtime/graphs.py) captured on them before
+        the swap reads the adopted rows."""
         for name, g in self.groups.items():
             og = old.groups.get(name)
             if og is None:
@@ -1081,7 +1110,7 @@ class Engine:
                 o = og.host["demod"].get(key)
                 if o is not None and arr.shape[1:] == o.shape[1:]:
                     arr[:n] = o[:n]
-            g.params = g._place(g.host)
+            _copy_leaves(g.params, g.host)
         return self.init_params()
 
     def master_step(self, mstate, block: torch.Tensor):

@@ -9,9 +9,10 @@ host side: one process owns the engine on the card; per 20 ms block it
   2. pulls one input block from the front end (sig_gen on the card, a file
      or RTP reader, or an external feeder; one [B, L] block from the B
      front ends of several `[hardware]` sections) and copies it to the card,
-  3. runs the engine step (D steps with `time-shards = D`), then copies the
-     audio and the per-block control leaves back to pinned host memory with
-     one synchronisation,
+  3. runs the engine step (D steps with `time-shards = D`) on the card as
+     one CUDA graph replay (runtime/graphs.py, the twin of the JAX
+     daemon's jit and lax.scan), then copies the audio and the per-block
+     control leaves back to pinned host memory with one synchronisation,
   4. packetizes each unmuted channel's audio as RTP (PCM s16be/f32/
      mu-law/... via net.rtp) and multicasts it,
   5. emits per-channel TLV status beacons every `update` blocks and
@@ -28,7 +29,8 @@ runs, beamforming groups and several `[hardware]` inputs included. `mesh =
 yes` runs the sharded engine over every local CUDA device (or over a mesh
 the caller passes, such as four shards of one card): the distributed master
 FFT and each group split into C/D channel rows, or with `time-shards` D
-consecutive blocks a dispatch, one a device (Engine.step_time).
+consecutive blocks a dispatch, one a device (Engine.step_time); a mesh
+dispatches eagerly, since its collectives cross the host.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from ..net.multicast import (resolve_dest, output_socket, output_socket_unconnec
 from ..utils.units import power_to_dB, dB_to_power, dB_to_voltage, voltage_to_dB
 from ..utils.device import resolve_device
 from .engine import Engine, migrate_state
+from .graphs import GraphStep
 from .source import siggen_init, siggen_block
 
 __all__ = ["Radiod", "DEMOD_TYPE_CODES"]
@@ -81,13 +84,6 @@ def _out_format(spec) -> tuple[int, int]:
     if spec.demod == "wfm":
         return 48_000, 2
     return spec.samprate, 2 if spec.stereo else 1
-
-
-def _stack_tree(trees: list):
-    """[tree, ...] of tensors -> one tree of tensors stacked on a new axis 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack_tree([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def _host_copy(tree, device: torch.device):
@@ -158,8 +154,9 @@ class _LazyGroupInfo:
     the d2h boundary, once per dispatch, instead of every [C]-sized
     leaf every block. Leaf access returns the same full [C(, ...)]
     numpy arrays the eager dict would hold; time-sharded dispatches
-    share one cache across their D per-block views. It holds the
-    dispatch's own output tensors, which no later step writes in place."""
+    share one cache across their D per-block views. It holds device
+    copies of the dispatch's output tensors (_fetch_out makes them: a
+    graph's next replay overwrites the outputs themselves)."""
 
     __slots__ = ("_dev", "_cache", "_d")
 
@@ -286,6 +283,8 @@ class Radiod:
             build()
         self.engine = Engine(groups=cfg.groups, **self._engine_kwargs())
         self.state = self.engine.init_state()
+        self._graph_before = {"engines": 0, "captures": 0, "capture_ms": 0.0, "replays": 0,
+                              "state_copies_in": 0, "eager_blocks": {}}
         self.step = self._mk_step(self.engine)
         self.params = self.engine.init_params()
         self.source_state = None
@@ -477,6 +476,7 @@ class Radiod:
         # creates channels in ms, radio_status.c:92-105)
         for pname in str(cfg.options.get("prealloc", "")).split():
             self._prealloc(pname.lower())
+        self._prepare_step()
 
     @staticmethod
     def _feeder(d: dict):
@@ -535,24 +535,35 @@ class Radiod:
         self.frontends = [self._feeder(s) for s in srcs]
         self.frontend = self.frontends[0]  # RF_GAIN etc. commands act on the first
 
-    def _mk_step(self, eng) -> Any:
-        """The per-dispatch function: the engine's step, or with
-        `time-shards = D` a loop of D steps whose outputs stack to [D, ...]
-        (the same values as D single steps), or on a mesh step_time."""
-        if not self._time_shards:
-            return eng.step
+    def _mk_step(self, eng, stepper: "GraphStep | None" = None) -> Any:
+        """The per-dispatch function of a new engine: a GraphStep (one CUDA
+        graph replay a dispatch of one block, or with `time-shards = D` of
+        D blocks whose outputs stack to [D, ...]; eager on the CPU), or the
+        one a restock worker prepared; on a mesh the eager Engine.step or
+        step_time. The previous engine's graphs are released, their counts
+        kept for graph_stats()."""
+        old = getattr(self, "_stepper", None)
+        if old is not None:
+            st = old.graph_stats()
+            acc = self._graph_before
+            acc["engines"] += 1
+            for k in ("captures", "replays", "state_copies_in"):
+                acc[k] += st[k]
+            acc["capture_ms"] += sum(st["capture_ms"])
+            for why, n in st["eager_blocks"].items():
+                acc["eager_blocks"][why] = acc["eager_blocks"].get(why, 0) + n
+            old.reset()
         if self._mesh is not None:
-            return eng.step_time
-        D = self._time_shards
+            self._stepper = None
+            return eng.step_time if self._time_shards else eng.step
+        self._stepper = stepper or GraphStep(eng, self._time_shards)
+        return self._stepper
 
-        def step_many(state, prms, blocks):
-            outs = []
-            for d in range(D):
-                state, out = eng.step(state, prms, blocks[d])
-                outs.append(out)
-            return state, _stack_tree(outs)
-
-        return step_many
+    def _prepare_step(self) -> None:
+        """Capture the engine's graphs before its first dispatch, for the
+        branches it will certainly meet (GraphStep.prepare)."""
+        if self._stepper is not None:
+            self._stepper.prepare(self.state, self.params)
 
     def _prealloc(self, preset: str):
         from ..config.loader import _build_group
@@ -1154,6 +1165,7 @@ class Radiod:
         self.step = self._mk_step(new_eng)
         self._engine_epoch += 1  # void any in-flight background restock
         self._sync_spectrum_lazy()  # fresh engines come up armed
+        self._prepare_step()
         self._group_dests.clear()
         if self.edges:
             self._refresh_edges()
@@ -1180,10 +1192,14 @@ class Radiod:
         """Grow a dynamic class's pool of spare slots OFF the command path:
         a worker thread builds the grown engine (its params and the
         channelizer operand go to the card on a side CUDA stream of their
-        own), and step_block swaps it in at a block boundary
-        (migrate_state + adopt_host_params, both cheap). A foreground
-        _rebuild meanwhile (epoch bump) voids the result. An error in the
-        worker is raised at the swap."""
+        own) and captures its CUDA graphs (GraphStep.prepare, in the
+        worker's own thread, from a fresh state carrying the host mirrors
+        of now: the branches the next dispatches meet), and step_block
+        swaps it in at a block boundary (migrate_state + adopt_host_params,
+        both cheap; adopt writes params in place, so the graphs read the
+        adopted rows; a branch the worker did not foresee is captured
+        then). A foreground _rebuild meanwhile (epoch bump) voids the
+        result. An error in the worker is raised at the swap."""
         if self.dyn_spare == 0:
             return
         if self._restock is not None:
@@ -1209,17 +1225,26 @@ class Radiod:
                              "count": count, "error": None, "C": g.C,
                              "t0": _time.monotonic()}
         dev = self.device
+        host = {"jobnum": self.state["host"]["jobnum"],
+                "groups": {n: dict(h) for n, h in self.state["host"]["groups"].items()}}
+        graphs = dev.type == "cuda" and self._mesh is None
 
         def work():
             try:
                 if dev.type == "cuda":
                     side = torch.cuda.Stream(device=dev)
                     with torch.cuda.stream(side):
-                        r["engine"] = Engine(groups=specs, **kwargs)
+                        eng = Engine(groups=specs, **kwargs)
                     # the worker waits for its own copies; the loop never does
                     side.synchronize()
                 else:
-                    r["engine"] = Engine(groups=specs, **kwargs)
+                    eng = Engine(groups=specs, **kwargs)
+                if graphs:
+                    stepper = GraphStep(eng, self._time_shards)
+                    stepper.prepare(migrate_state({"host": host}, eng.init_state()),
+                                    eng.init_params())
+                    r["stepper"] = stepper
+                r["engine"] = eng
             except Exception as e:
                 r["error"] = e
 
@@ -1251,6 +1276,8 @@ class Radiod:
         if r["error"] is not None:
             raise r["error"]
         if r["epoch"] != self._engine_epoch:
+            if r.get("stepper") is not None:
+                r["stepper"].reset()
             return  # a foreground rebuild superseded this engine
         old = self.engine
         new_eng = r["engine"]
@@ -1258,7 +1285,7 @@ class Radiod:
         new_state = migrate_state(self.state, new_eng.init_state())
         new_params = new_eng.adopt_host_params(old)
         self.state, self.params, self.engine = new_state, new_params, new_eng
-        self.step = self._mk_step(new_eng)
+        self.step = self._mk_step(new_eng, r.get("stepper"))
         # measured restock latency drives the auto-provisioning rule
         lat = time.monotonic() - r["t0"]
         prev = self._restock_latency.get(gname)
@@ -1266,6 +1293,7 @@ class Radiod:
                                         else prev + 0.3 * (lat - prev))
         self._engine_epoch += 1
         self._sync_spectrum_lazy()
+        self._prepare_step()
         self._group_dests.clear()
         for s in range(old_C, old_C + count):
             self._mute_slot(gname, s)
@@ -2065,7 +2093,9 @@ class Radiod:
             fetch[name] = {"audio": g["audio"],
                            "info": {k: info[k] for k in self._MINI_LEAVES
                                     if k in info}}
-            lazy[name] = info
+            # copies on the device, taken before the next dispatch can
+            # overwrite a graph's outputs
+            lazy[name] = {k: v.clone() for k, v in info.items()}
         host = _host_copy(fetch, self.device)
         for name, dev in lazy.items():
             host[name]["info"] = _LazyGroupInfo(dev, dict(host[name]["info"]))
@@ -2119,7 +2149,8 @@ class Radiod:
 
     def _to_device(self, block) -> torch.Tensor:
         """A host block to the engine's device: pinned, then copied with
-        non_blocking=True (the host time of each, and the bytes, add to
+        non_blocking=True straight into the block buffer the step's graphs
+        read (the host time of each, and the bytes, add to
         `frontend_host`)."""
         if torch.is_tensor(block):
             return block.to(self.device)
@@ -2128,7 +2159,11 @@ class Radiod:
             fh, t0 = self.frontend_host, time.perf_counter()
             t = t.pin_memory()
             t1 = time.perf_counter()
-            t = t.to(self.device, non_blocking=True)
+            buf = None if self._stepper is None else self._stepper.input_buffer()
+            if buf is not None and buf.shape == t.shape:
+                t = buf.copy_(t, non_blocking=True)
+            else:
+                t = t.to(self.device, non_blocking=True)
             fh["copies"] += 1
             fh["pin_s"] += t1 - t0
             fh["copy_s"] += time.perf_counter() - t1
@@ -2147,6 +2182,13 @@ class Radiod:
                 "stack_ms": per("stack_s", fh["reads"]), "pin_ms": per("pin_s", fh["copies"]),
                 "copy_ms": per("copy_s", fh["copies"]),
                 "h2d_bytes": fh["h2d_bytes"] / fh["copies"] if fh["copies"] else None}
+
+    def graph_stats(self) -> dict:
+        """How dispatches ran on the card (GraphStep.graph_stats of the
+        current engine; None on a mesh, which dispatches eagerly), and the
+        totals of the engines before it (table rebuilds, restocks)."""
+        return {"current": None if self._stepper is None else self._stepper.graph_stats(),
+                "before": self._graph_before}
 
     def step_block(self, block=None):
         """Run one dispatch end to end: one 20 ms block, or D consecutive

@@ -8,10 +8,12 @@ wall time; a time-sharded dispatch carries D blocks, so a block's audio
 also waits up to (D-1) x 20 ms in the queue (`added_latency_ms`). Prints
 one JSON line a mode.
 
-On the port D does not batch the step: `_mk_step`
-(ka9q_radio_tpu_torch/runtime/radiod.py) loops over D Engine.step calls,
-where the JAX daemon runs them as one lax.scan. So D amortizes only the
-host's read, copy, fetch and sync here, while it still adds the queueing.
+Radiod runs each dispatch as one CUDA graph replay (runtime/graphs.py:
+the D steps of a time-sharded dispatch in one graph, the JAX daemon's
+lax.scan), so D amortizes the step's host cost as well as the host's read,
+copy, fetch and sync, while it still adds the queueing. Each line carries
+the daemon's graph_stats() summary: captures, their ms, replays and eager
+blocks.
 
     python profile_latency_torch.py [modes ...] [--device cuda|cpu] [--loopback]
 
@@ -95,9 +97,11 @@ def measure(ts: int, dispatches: int, device=None, loopback: bool = False) -> di
             edge.close()
     s = np.sort(np.asarray(spans)) * 1e3
     d = max(ts, 1)
+    gst = rd.graph_stats()["current"]
     p50 = float(np.percentile(s, 50))
     return {
         "mode": f"time-shards={ts}" if ts else "per-block",
+        "dispatch": gst["dispatch"],
         "blocks_per_dispatch": d,
         "dispatch_p50_ms": p50,
         "dispatch_p99_ms": float(np.percentile(s, 99)),
@@ -106,6 +110,8 @@ def measure(ts: int, dispatches: int, device=None, loopback: bool = False) -> di
         "added_latency_ms": p50 + (d - 1) * 20.0,
         "samples": len(s),
         "device": str(rd.engine.device),
+        "graphs": {k: gst[k] for k in ("captures", "replays", "eager_blocks")}
+        | {"capture_ms": sum(gst["capture_ms"])},
     }
 
 

@@ -529,3 +529,121 @@ def test_per_shard_kernels_on_card(cuda):
     torch.cuda.synchronize()
     assert cc.launches["channelize"] == 4 and cc.launches["noise_est"] == 4
     assert bool(torch.isfinite(out["hf"]["audio"]).all())
+
+
+# -- the compiled dispatch (runtime/graphs.py) --------------------------------
+def _graph_engine(config: str, device):
+    """bench.py's configurations (bench_torch.build_engine), an RTL-SDR's
+    odd master and the 2 m daemon's kinds (NBFM with CTCSS, SAM), on the
+    card: (engine, blocks maker n -> [n, ...] on the card)."""
+    import sys
+    from pathlib import Path
+
+    import ka9q_radio_tpu_torch.runtime as trt
+    from torch_scenes import demod_groups, odd_master_groups
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import bench_torch
+
+    if config == "odd_master":
+        eng = trt.Engine(samprate=2_400_000, real=False,
+                         groups=odd_master_groups(trt, 2_400_000), device=device)
+    elif config == "2m":
+        eng = trt.Engine(samprate=1_024_000, real=False, device=device,
+                         groups=[g for g in demod_groups(trt) if g.name in ("fm", "sam")])
+    else:
+        eng = bench_torch.build_engine(config, device=device)[0]
+    gen = torch.Generator(device=device).manual_seed(31)
+    shape = (eng.L,) if eng.n_inputs == 1 else (eng.n_inputs, eng.L)
+
+    def blocks(n):
+        if eng.master.real:
+            return 1e-3 * torch.randn((n,) + shape, generator=gen, device=device)
+        return 1e-3 * torch.complex(torch.randn((n,) + shape, generator=gen, device=device),
+                                    torch.randn((n,) + shape, generator=gen, device=device))
+
+    return eng, blocks
+
+
+def _trees_equal(a, b, where) -> None:
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _trees_equal(a[k], b[k], f"{where}/{k}")
+    elif torch.is_tensor(a):
+        assert a.shape == b.shape and a.dtype == b.dtype, where
+        assert torch.equal(a, b), where
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("config,D", [("rx888", 0), ("rx888", 4), ("rx888x4", 0),
+                                      ("nbfm400", 0), ("wfm", 0), ("odd_master", 0),
+                                      ("2m", 0), ("2m", 3)])
+def test_graph_replay_equals_eager_step(cuda, config, D):
+    """12 blocks (D a dispatch with time shards) through GraphStep and
+    through the eager step from the same state and params, with a retune
+    after a third of them and the sweep disarmed for a dispatch where the
+    config has one: outputs, carried state and host mirrors bit for bit
+    (the replays run exactly the eager step's kernels), and the launch
+    counters equal."""
+    from ka9q_radio_tpu_torch.runtime.graphs import GraphStep
+
+    eng, blocks = _graph_engine(config, cuda)
+    gs = GraphStep(eng, D)
+    p = eng.init_params()
+    se, sg = eng.init_state(), eng.init_state()
+    n = 12 // max(D, 1)
+    xs = blocks(12).reshape((n, D) + tuple(blocks(1).shape[1:])) if D else blocks(12)
+    first = next(iter(eng.groups))
+    got = {"eager": dict.fromkeys(tcc.launches, 0), "graph": dict.fromkeys(tcc.launches, 0)}
+    for b in range(n):
+        if b == n // 3:
+            g = eng.groups[first]
+            eng.retune(p, first, 0, float(g.spec.channels[0].freq) + 500.0)
+        if "sweep" in eng.groups and b in (n // 2, n // 2 + 1):
+            eng.set_armed(p, "sweep", b != n // 2)
+        for name, run in (("eager", lambda: gs.eager(se, p, xs[b])), ("graph", lambda: gs(sg, p, xs[b]))):
+            tcc.reset_launches()
+            st, out = run()
+            torch.cuda.synchronize()
+            for k, v in tcc.launches.items():
+                got[name][k] += v
+            if name == "eager":
+                se, oe = st, out
+            else:
+                sg, og = st, out
+        assert sg["host"] == se["host"], b
+        _trees_equal(og, oe, f"{config} block {b} out")
+        _trees_equal({k: v for k, v in sg.items() if k != "host"},
+                     {k: v for k, v in se.items() if k != "host"}, f"{config} block {b} state")
+    assert got["graph"] == got["eager"], got
+    stats = gs.graph_stats()
+    assert stats["dispatch"] == "cuda graph" and stats["replays"] >= n - 2, stats
+    assert all(g["pool_bytes"] is None or g["pool_bytes"] > 0 for g in stats["graphs"].values())
+
+
+def test_graph_capture_that_cannot_work_raises(cuda):
+    """A branch that reads a device value back to the host (.item()) cannot
+    be captured: GraphStep raises, naming the call, and the eager step and
+    later captures still work on the card."""
+    from ka9q_radio_tpu_torch.runtime.graphs import GraphStep
+
+    eng, blocks = _graph_engine("linear8", cuda)
+    g = eng.groups["lin"]
+    noise = g._noise_est
+
+    def syncing(params, F, d=0):
+        n0 = noise(params, F, d)
+        return n0 * float(n0.sum().item() >= 0.0)
+
+    g._noise_est = syncing
+    gs = GraphStep(eng)
+    st, p = eng.init_state(), eng.init_params()
+    with pytest.raises(RuntimeError, match="capturing the step's branch 'W' failed in .*item"):
+        gs(st, p, blocks(1)[0])
+    g._noise_est = noise
+    st, out = eng.step(st, p, blocks(1)[0])
+    st, out = GraphStep(eng)(st, p, blocks(1)[0])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out["lin"]["audio"]).all())

@@ -1,0 +1,442 @@
+"""PyTorch port, the compiled dispatch (runtime/graphs.py) on the CPU.
+
+GraphStep runs each dispatch as one CUDA graph replay on the card; here it
+is checked without a card:
+  (a) one key, one launch sequence: the ops a dispatch records (shapes and
+      non-tensor arguments, each kernel wrapper as one opaque launch) are
+      the same for every dispatch of one graph key, across the warm-up, the
+      N0 cadence, a spectrum group's armed flag and time shards; and no op
+      reads a device value back or copies host data in;
+  (b) every params writer keeps every leaf's address;
+  (c) the static-buffer body (emulate=True: state copied in, stepped and
+      written back in place, outputs overwritten in place) equals the eager
+      step bit for bit, and the JAX engine within the parity tests' bounds;
+  (d) a big group's lazily fetched info keeps its dispatch's values after
+      the next dispatch overwrites the graph's outputs.
+"""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import ka9q_radio_tpu.runtime as jrt
+import ka9q_radio_tpu_torch.runtime as trt
+from ka9q_radio_tpu_torch.models import fm as tfm
+from ka9q_radio_tpu_torch.models import linear as tlin
+from ka9q_radio_tpu_torch.ops.iir import first_order_scan
+from ka9q_radio_tpu_torch.runtime import engine as teng
+from ka9q_radio_tpu_torch.runtime.graphs import GraphStep, stack_tree
+from torch_parity import assert_outputs_close, assert_same_tree, tree_np
+from torch_scenes import CFS, demod_block, demod_groups, multi_blocks, multi_chans
+
+torch.set_num_threads(2)
+
+FS = 2_048_000  # the small rx888's real master
+HF = np.linspace(0.05 * FS, 0.45 * FS, 8)
+
+
+def _sweep(rt, freqs):
+    """A wide spectrum group (bin_bw 1 kHz, above the 200 Hz crossover)."""
+    return rt.GroupSpec(name="sweep", demod="spectrum", samprate=32_400, bin_bw=1000.0,
+                        bin_count=32, channels=tuple(rt.ChannelSpec(freq=float(f)) for f in freqs))
+
+
+def _ssb(rt, name, freqs, **kw):
+    return rt.GroupSpec(name=name, demod="linear", samprate=8_000, snr_squelch=True,
+                        channels=tuple(rt.ChannelSpec(freq=float(f), low=50.0, high=3000.0)
+                                       for f in freqs), **kw)
+
+
+def _real_block(b: int, L: int, rng) -> np.ndarray:
+    t = np.arange(b * L, (b + 1) * L) / FS
+    x = 0.01 * rng.standard_normal(L)
+    for i, f in enumerate(HF[::2]):
+        x += (0.05 + 0.05 * i) * np.cos(2 * np.pi * (f + 700.0) * t)
+    return x.astype(np.float32)
+
+
+def _cplx_block(b: int, L: int, rng) -> np.ndarray:
+    t = np.arange(b * L, (b + 1) * L) / CFS
+    x = 1e-3 * (rng.standard_normal(L) + 1j * rng.standard_normal(L))
+    x += 0.1 * np.exp(1j * (2 * np.pi * -100e3 * t + 2.5 * np.sin(2 * np.pi * 1000 * t)))
+    return x.astype(np.complex64)
+
+
+def _engine(config: str, rt=trt, **kw):
+    """Small engines of each kind: (engine, block maker (b, rng) -> one
+    block, time shards)."""
+    ch = rt.ChannelSpec
+    if config in ("rx888", "rx888_ts3"):
+        eng = rt.Engine(samprate=FS, real=True, groups=[_ssb(rt, "hf", HF),
+                                                        _sweep(rt, np.linspace(0.1, 0.4, 4) * FS)],
+                        **kw)
+        return eng, lambda b, rng: _real_block(b, eng.L, rng), 3 if config == "rx888_ts3" else 0
+    if config == "two_inputs":
+        eng = rt.Engine(samprate=CFS, real=False, n_inputs=2, groups=[
+            rt.GroupSpec(name="usb", demod="linear", samprate=12_000, snr_squelch=True,
+                         channels=multi_chans(rt, 2))], **kw)
+        blocks = multi_blocks(32, 2, eng.L, seed=3)
+        return eng, lambda b, rng: blocks[b], 0
+    groups = {
+        "nbfm": [rt.GroupSpec(name="nbfm", demod="fm", samprate=24_000, channels=tuple(
+            ch(freq=float(f), low=-8000.0, high=8000.0) for f in np.linspace(-400e3, 400e3, 8)))],
+        "wfm": [rt.GroupSpec(name="wfm", demod="wfm", samprate=384_000, channels=(
+            ch(freq=-250e3, low=-100e3, high=100e3), ch(freq=250e3, low=-100e3, high=100e3)))],
+        # the 2 m daemon's kinds: NBFM with CTCSS (the Goertzel kernel), SAM
+        # (the PLL kernel)
+        "2m": [g for g in demod_groups(rt) if g.name in ("fm", "sam")],
+    }[config]
+    eng = rt.Engine(samprate=CFS, real=False, groups=groups, **kw)
+    return eng, lambda b, rng: _cplx_block(b, eng.L, rng), 0
+
+
+def _dispatch(eng, st, p, blk, D: int):
+    """One eager dispatch: a step, or D of them stacked."""
+    if not D:
+        return eng.step(st, p, blk)
+    outs = []
+    for d in range(D):
+        st, o = eng.step(st, p, blk[d])
+        outs.append(o)
+    return st, stack_tree(outs)
+
+
+def _blocks(make, b: int, D: int, rng) -> torch.Tensor:
+    if not D:
+        return torch.from_numpy(np.ascontiguousarray(make(b, rng)))
+    return torch.from_numpy(np.stack([make(b * D + d, rng) for d in range(D)]))
+
+
+# -- (a) one key, one launch sequence ---------------------------------------
+def _desc(x):
+    if torch.is_tensor(x):
+        return ("T", str(x.dtype), tuple(x.shape))
+    if isinstance(x, (list, tuple)):
+        return tuple(_desc(v) for v in x)
+    if isinstance(x, dict):
+        return tuple((k, _desc(v)) for k, v in x.items())
+    return repr(x)
+
+
+class _Ops(TorchDispatchMode):
+    """Each op's name, argument shapes and non-tensor arguments; the kernel
+    wrappers are recorded as one launch each (their CPU insides are the
+    plain versions, which the card does not run)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.paused = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.paused:
+            self.ops.append((str(func), _desc(args), _desc(kwargs or {})))
+        return func(*args, **(kwargs or {}))
+
+
+# ops that read a device value back to the host, or copy host data in: they
+# would break a capture (or freeze a host value into it)
+_FORBIDDEN = {"aten._local_scalar_dense.default", "aten.item.default", "aten.nonzero.default",
+              "aten.masked_select.default", "aten.lift_fresh.default",
+              "aten.lift_fresh_copy.default"}
+
+
+def _kernels_opaque(monkeypatch, rec: _Ops) -> None:
+    for mod, name in ((teng, "cuda_channelize"), (teng, "cuda_noise_est"),
+                      (tlin, "cuda_pll_scan"), (tfm, "cuda_goertzel_block")):
+        def opaque(*a, _fn=getattr(mod, name), _name=name, **k):
+            rec.ops.append((f"kernel:{_name}", _desc(a), _desc(k)))
+            rec.paused += 1
+            try:
+                return _fn(*a, **k)
+            finally:
+                rec.paused -= 1
+
+        monkeypatch.setattr(mod, name, opaque)
+
+
+@pytest.mark.parametrize("config", ["rx888", "nbfm", "wfm", "two_inputs", "2m", "rx888_ts3"])
+def test_one_key_one_launch_sequence(monkeypatch, config):
+    """Dispatches from block 0 (the master's warm-up), through the N0
+    cadence (noise_every 4), a retune, and for the rx888 engine the sweep
+    disarmed for two dispatches; with time shards D 3, whose dispatches run
+    through four cadence patterns (test_static_body_equals_eager_steps
+    disarms the sweep there). Every two dispatches of one graph key
+    record the same ops; at least three keys occur, and each but the
+    warm-up's repeats."""
+    eng, make, D = _engine(config, device="cpu")
+    rec = _Ops()
+    _kernels_opaque(monkeypatch, rec)
+    gs = GraphStep(eng, D)
+    p, st = eng.init_params(), eng.init_state()
+    first = next(iter(eng.groups))
+    seen: dict = {}
+    repeats = 0
+    rng = np.random.default_rng(2)
+    for b in range(12 if not D else 9):
+        if b == 5:
+            g = eng.groups[first]
+            eng.retune(p, first, 0, float(g.spec.channels[0].freq) + 1000.0)
+        if "sweep" in eng.groups and not D and b in (6, 8):
+            eng.set_armed(p, "sweep", b == 8)
+        key, why = gs.key(st["host"])
+        blk = _blocks(make, b, D, rng)
+        rec.ops = []
+        with rec:
+            st, _ = _dispatch(eng, st, p, blk, D)
+        bad = {op for op, *_ in rec.ops if op in _FORBIDDEN}
+        assert not bad, (config, b, bad)
+        for op, args, _ in rec.ops:
+            if op.startswith(("aten.index.", "aten.index_put")):
+                assert "'torch.bool'" not in repr(args), (config, b, op)
+        if key is None:
+            assert why and "spectrum warm-up" in why, why
+            continue
+        if key in seen:
+            assert rec.ops == seen[key], (config, b, key)
+            repeats += 1
+        else:
+            seen[key] = rec.ops
+    assert len(seen) >= 3 and repeats >= len(seen) - 1, (config, sorted(seen), repeats)
+
+
+def test_a_host_scalar_in_a_launch_changes_the_key(monkeypatch):
+    """The sweep's first fft_avg frames weigh each frame by 1/(n+1) from
+    the host's frame count: two dispatches in that warm-up record different
+    scalars, and GraphStep runs them eagerly (no key), naming the reason."""
+    eng, make, _ = _engine("rx888", device="cpu")
+    geo = eng.groups["sweep"].wide_geo
+    rec = _Ops()
+    _kernels_opaque(monkeypatch, rec)
+    gs = GraphStep(eng)
+    p, st = eng.init_params(), eng.init_state()
+    rng = np.random.default_rng(3)
+    got = []
+    for frames in (0, 3):
+        st["host"]["groups"]["sweep"]["frames"] = frames
+        key, why = gs.key(st["host"])
+        assert key is None and why.startswith("sweep: spectrum warm-up")
+        rec.ops = []
+        with rec:
+            eng.step(st, p, _blocks(make, 0, 0, rng))
+        got.append(rec.ops)
+    assert geo.fft_avg > 3 and got[0] != got[1]
+
+
+# -- (b) writers keep addresses ----------------------------------------------
+def _leaf_ptrs(p) -> dict:
+    from ka9q_radio_tpu_torch.runtime.graphs import _flatten
+
+    return {path: v.data_ptr() for path, v in _flatten(p) if torch.is_tensor(v)}
+
+
+def _all_groups(rt, extra: int = 0):
+    """Every demodulator and a wide sweep on the complex master; `extra`
+    more FM channels (a rebuilt table)."""
+    gs = [g for g in demod_groups(rt) if g.name != "spec"] + [_sweep(rt, [-200e3, 200e3])]
+    return [dataclasses.replace(g, channels=g.channels + tuple(
+        dataclasses.replace(g.channels[-1], freq=g.channels[-1].freq + 30e3 * (i + 1))
+        for i in range(extra))) if g.name == "fm" else g for g in gs]
+
+
+def test_writers_keep_param_addresses():
+    """retune, set_edges (with filter2's stage), set_demod, set_armed and,
+    on a rebuilt table, adopt_host_params write rows into the tensors the
+    graphs read: every params leaf keeps its address, and the rows change."""
+    eng = trt.Engine(samprate=CFS, real=False, groups=_all_groups(trt), device="cpu")
+    p = eng.init_params()
+    ptrs = _leaf_ptrs(p)
+    shifts = p["fm"]["shifts"].clone()
+    eng.retune(p, "fm", 0, 101e3)
+    eng.set_edges(p, "cwu", 0, -300.0, 300.0, None, 6.0)
+    eng.set_edges(p, "sam", 0, -4000.0, 4000.0)
+    assert eng.groups["sam"].set_demod(p["sam"], 0, "pll_loop_bw", 20.0)
+    eng.set_armed(p, "sweep", False)
+    assert float(p["sweep"]["armed"]) == 0.0
+    eng.set_armed(p, "sweep", True)
+    assert _leaf_ptrs(p) == ptrs
+    assert int(p["fm"]["shifts"][0]) != int(shifts[0]) and float(p["sam"]["demod"]["pll_loop_bw"][0]) == 20.0
+    new = trt.Engine(samprate=CFS, real=False, groups=_all_groups(trt, extra=2), device="cpu")
+    p2 = new.init_params()
+    ptrs2 = _leaf_ptrs(p2)
+    p3 = new.adopt_host_params(eng)
+    assert _leaf_ptrs(p3) == ptrs2
+    for key in ("shifts", "resp_tiles", "tile_lo"):
+        torch.testing.assert_close(p3["fm"][key][:2], p["fm"][key], rtol=0, atol=0)
+    torch.testing.assert_close(p3["cwu"]["responses2"], p["cwu"]["responses2"], rtol=0, atol=0)
+    assert float(p3["sam"]["demod"]["pll_loop_bw"][0]) == 20.0
+
+
+def test_graph_step_refuses_a_replaced_params_leaf():
+    """A params leaf swapped for another tensor after the first dispatch
+    raises, naming the leaf: the graphs read params by address."""
+    eng, make, _ = _engine("rx888", device="cpu")
+    gs = GraphStep(eng, emulate=True)
+    p, st = eng.init_params(), eng.init_state()
+    rng = np.random.default_rng(4)
+    for b in range(2):  # block 0 runs eagerly (the sweep's warm-up)
+        st, _ = gs(st, p, _blocks(make, b, 0, rng))
+    p["hf"]["inc_q32"] = p["hf"]["inc_q32"].clone()
+    with pytest.raises(ValueError, match="hf/inc_q32"):
+        gs(st, p, _blocks(make, 2, 0, rng))
+
+
+# -- (c) the static-buffer body ----------------------------------------------
+@pytest.mark.parametrize("D", [0, 3])
+def test_static_body_equals_eager_steps(D):
+    """12 blocks (4 dispatches of 3 with time shards) with a retune and the
+    sweep disarmed and re-armed: the emulated graph dispatch's outputs,
+    carried state and host mirrors equal the eager steps' bit for bit, and
+    graph_stats() accounts for every dispatch (replays, and eager blocks
+    named by their reason)."""
+    eng, make, _ = _engine("rx888", device="cpu")
+    gs = GraphStep(eng, D, emulate=True)
+    p = eng.init_params()
+    se, sg = eng.init_state(), eng.init_state()
+    rng = np.random.default_rng(5)
+    n = 12 // max(D, 1)
+    for b in range(n):
+        if b == n // 3:
+            eng.retune(p, "hf", 2, float(HF[2]) - 400.0)
+        if b in (n // 2, n // 2 + 1):
+            eng.set_armed(p, "sweep", b != n // 2)
+        blk = _blocks(make, b, D, rng)
+        se, oe = _dispatch(eng, se, p, blk, D)
+        sg, og = gs(sg, p, blk)
+        assert sg["host"] == se["host"], b
+        assert_same_tree(tree_np(og), tree_np(oe))
+        assert_same_tree(tree_np({k: v for k, v in sg.items() if k != "host"}),
+                         tree_np({k: v for k, v in se.items() if k != "host"}))
+    stats = gs.graph_stats()
+    eager = sum(stats["eager_blocks"].values())
+    assert stats["dispatch"] == "emulated" and stats["replays"] >= n - 2
+    assert stats["replays"] * max(D, 1) + eager == 12
+    assert set(stats["eager_blocks"]) <= {"sweep: spectrum warm-up (frame weights 1/(n+1))"}
+    assert sum(g["replays"] for g in stats["graphs"].values()) == stats["replays"]
+
+
+def test_static_body_matches_jax_engine():
+    """Every demodulator and a wide sweep on the complex master through the
+    emulated graph dispatch, each block from the JAX engine's state (copied
+    into the static state) and from the same params: a retune before block
+    5 and the sweep disarmed for blocks 7-8. Outputs within the bounds of
+    the parity tests (torch_parity.assert_outputs_close: audio 5e-4 of its
+    peak, info rtol 2e-4, flags and counters exact) from block 2."""
+    je = jrt.Engine(samprate=CFS, real=False, groups=_all_groups(jrt), fft="monolithic")
+    te = trt.Engine(samprate=CFS, real=False, groups=_all_groups(trt), device="cpu")
+    jp, js = je.init_params(), je.init_state()
+    tp = trt.params_from_jax(jax.device_get(jp), device="cpu")
+    gs = GraphStep(te, emulate=True)
+    step = jax.jit(je.step)
+    rng = np.random.default_rng(13)
+    for b in range(12):
+        if b == 5:
+            jp = je.retune(jp, "fm", 1, -148e3)
+            tp = te.retune(tp, "fm", 1, -148e3)
+        if b in (7, 9):
+            on = b == 9
+            jp = {**jp, "sweep": {**jp["sweep"], "armed": jnp.float32(1.0 if on else 0.0)}}
+            te.set_armed(tp, "sweep", on)
+        x = demod_block(b, te.L, rng)
+        ts = trt.state_from_jax(jax.device_get(js), device="cpu")
+        js, jo = step(js, jp, jnp.asarray(x))
+        ts, to = gs(ts, tp, torch.from_numpy(x))
+        if b >= 2:
+            assert_outputs_close(to, jax.device_get(jo), where=f"block {b}")
+    stats = gs.graph_stats()
+    assert stats["replays"] >= 9 and stats["state_copies_in"] >= 8, stats
+
+
+# -- (d) lazily fetched info survives the next dispatch ----------------------
+BIG_CONF = """
+[global]
+hardware = gen
+status = 127.0.0.1
+data = 127.0.0.1
+big-group = 4
+{opts}
+[gen]
+device = sig_gen
+samprate = 1m024
+complex = yes
+carrier = 100k
+amplitude = -20
+noise = -70
+
+[usb]
+mode = usb
+samprate = 12k
+freq = 100k0 110k0 120k0 130k0 140k0 150k0
+"""
+
+
+@pytest.mark.parametrize("opts", ["", "time-shards = 2\n"])
+def test_lazy_info_keeps_its_dispatch(opts):
+    """A big group's _LazyGroupInfo, made by _fetch_out from one dispatch's
+    outputs, returns that dispatch's values after a later dispatch of the
+    same graph key has overwritten the outputs in place (emulated replay;
+    one block and two blocks a dispatch)."""
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod, _LazyGroupInfo
+
+    rd = Radiod(load_config(BIG_CONF.format(opts=opts)), use_network=False, device="cpu")
+    rd.step = rd._stepper = GraphStep(rd.engine, rd._time_shards, emulate=True)
+    keys, outs, vals, lazies = [], [], [], []
+    for _ in range(4):
+        keys.append(rd._stepper.key(rd.state["host"])[0])
+        rd.source_state, blk = rd._siggen(rd.source_state)
+        rd.state, out = rd.step(rd.state, rd.params, rd._to_device(blk))
+        lazies.append(rd._fetch_out(out)["usb"]["info"])
+        outs.append(out["usb"]["info"])
+        vals.append({k: v.clone() for k, v in out["usb"]["info"].items()})
+    # the first dispatch whose key a later one repeats: the later one
+    # overwrote its outputs in place
+    i, j = next((i, j) for i in range(4) for j in range(i + 1, 4) if keys[i] == keys[j])
+    lazy = lazies[i]
+    assert isinstance(lazy, _LazyGroupInfo)
+    assert outs[i]["baseband_power"] is outs[j]["baseband_power"]
+    assert not torch.equal(vals[i]["baseband_power"], vals[j]["baseband_power"])
+    for k, v in vals[i].items():
+        np.testing.assert_array_equal(lazy[k], v.numpy(), err_msg=k)
+
+
+# -- what the graphs stand on --------------------------------------------------
+def test_first_order_scan_fills_numbers_on_the_device():
+    """A Python number for c or y0 becomes a tensor by a fill on d's device
+    (no host data copied in, which a capture refuses), with the values of
+    the tensor arguments."""
+    d = torch.from_numpy(np.random.default_rng(6).standard_normal((3, 37)).astype(np.float32))
+    rec = _Ops()
+    with rec:
+        got = first_order_scan(0.75, d, 0.5)
+    assert not {op for op, *_ in rec.ops if op in _FORBIDDEN}
+    want = first_order_scan(torch.full_like(d, 0.75), d, torch.full((3,), 0.5))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_graph_step_on_the_cpu_is_the_eager_step():
+    """Without emulate, on a CPU engine GraphStep is Engine.step (or the D
+    loop): the same outputs, nothing captured, graph_stats says eager."""
+    eng, make, _ = _engine("rx888", device="cpu")
+    gs = GraphStep(eng, 2)
+    p = eng.init_params()
+    rng = np.random.default_rng(7)
+    blk = _blocks(make, 0, 2, rng)
+    s1, o1 = gs(eng.init_state(), p, blk)
+    s2, o2 = _dispatch(eng, eng.init_state(), p, blk, 2)
+    assert_same_tree(tree_np(o1), tree_np(o2))
+    assert gs.prepare(s1, p) == 0 and not gs.graphs
+    assert gs.graph_stats()["dispatch"] == "eager"
+
+
+def test_graph_step_refuses_a_mesh_engine():
+    """A mesh engine dispatches eagerly (its collectives cross the host)."""
+    from ka9q_radio_tpu_torch.parallel import make_mesh
+
+    eng = trt.Engine(samprate=FS, real=True, groups=[_ssb(trt, "hf", HF)],
+                     mesh=make_mesh(["cpu"] * 2))
+    with pytest.raises(ValueError, match="mesh"):
+        GraphStep(eng)

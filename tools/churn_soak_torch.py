@@ -14,6 +14,11 @@ invariants that targeted tests cannot see at duration:
     torch.cuda.memory_allocated reports, each with the JAX soak's rule
     (end <= min(back half) x 1.10 + 32 MB).
 
+Each engine dispatches as CUDA graph replays on a card (runtime/graphs.py):
+the restock worker captures a grown engine's graphs in its own thread
+before the swap, and only a branch it did not foresee is captured in the
+foreground. The summary's `graphs` counts the captures, their ms and the
+replays over every engine.
 Prints ONE json summary line and exits 0 when every invariant holds.
 
     python tools/churn_soak_torch.py [--seconds 630] [--device cpu|cuda]
@@ -88,6 +93,20 @@ def _sink() -> socket.socket:
     s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     s.bind(("127.0.0.1", 0))
     return s
+
+
+def _graph_totals(rd) -> dict:
+    """The daemon's CUDA graph captures over every engine of the soak (the
+    current one and those the rebuilds and restocks replaced)."""
+    st = rd.graph_stats()
+    cur, before = st["current"], st["before"]
+    if cur is None:
+        return {"dispatch": "eager (mesh)"}
+    return {"dispatch": cur["dispatch"], "engines": before["engines"] + 1,
+            "captures": before["captures"] + cur["captures"],
+            "capture_ms": round(before["capture_ms"] + sum(cur["capture_ms"]), 1),
+            "replays": before["replays"] + cur["replays"],
+            "eager_blocks": sum(before["eager_blocks"].values()) + sum(cur["eager_blocks"].values())}
 
 
 def main(argv=None) -> int:
@@ -235,6 +254,7 @@ def main(argv=None) -> int:
         "p99_ms": round(rd.latency_percentiles((99,))[0] * 1e3, 2),
         "dyn_slots": rd.dyn_spare,
         "restock_latency_s": {k: round(v, 1) for k, v in rd._restock_latency.items()},
+        "graphs": _graph_totals(rd),
     }
     out["ok"] = (out["fg_rebuilds_after_warmup"] == 0 and out["block_drops"] == 0
                  and out["rss_plateau"] and out["device_plateau"])
