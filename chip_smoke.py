@@ -92,6 +92,19 @@ bench.py's configurations (rx888, rx888x16, hf32000, nbfm400, wfm, linear8:
 finite output, A and B by the counters, peak device memory),
 tools/bench_highc_torch.py for 10 s in a subprocess (it must exit 0), and
 tools/prof_master_torch.py's ablation on 1 and 4 shards of the card.
+Last, the `control` phase, the daemon's control plane on the card: the
+rx888-wspr farm (its own Radiod, every dispatch a graph replay) driven on
+the carrier's channel through a doppler ramp (the tone's pitch walks at the
+commanded rate, within 10 Hz a dispatch, and returns to 1,500 Hz when the
+ramp is cancelled), KAISER_BETA and GAIN (the same engine and graphs; the
+output 16.99 dB over the baseband power at GAIN = 20), MAXDELAY = 3 (the
+group leaves the native edge, each flush carries 3 x 240 samples, the
+tone's phase continuous over every join) and a preset switch to lsb (a
+rebuild, its graphs captured, the tone at 1,500 Hz); then
+tests/test_control_plane.py's config and command script run by two daemons
+on the card, one as graph replays and one whose _mk_step gives the eager
+step, their packets held to each other, kernels A and B counted in each
+(equal) and held against their plain versions at both configs' shapes.
 
 Kernel times come from CUDA events around a CUDA graph of n calls (a call
 that cannot be captured: n back-to-back calls, named in its phase's line),
@@ -101,8 +114,10 @@ breakdowns only; a trace that kept fewer kernel events than the counters
 saw is a note in that line, not a failure. Each phase prints one JSON
 line; the kernels line and the card's `nvidia-smi` name and power limit
 come before the last line, which is
-{"ok": true, "device": {...}}. Any failed phase exits non-zero. Long logs
-go to chiprun_out/. It imports nothing of JAX.
+{"ok": true, "device": {...}}. Any failed phase exits non-zero, and so does
+a CUDA graph capture that recorded nothing (a "The CUDA Graph is empty"
+warning, counted in the kernels line). Long logs go to chiprun_out/. It
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -191,9 +206,11 @@ PROFILER = {"sessions": 0}
 def event_ms(fn, n: int = 20, warm: int = 3, what: str = "") -> float:
     """Device ms of one call of fn: n calls captured in one CUDA graph,
     replayed between two CUDA events, over n (the launches' host gaps are
-    not in it). A call that cannot be captured (a host sync, a pageable
-    copy) is timed as n back-to-back calls between the two events instead
-    (its host launch gaps in it), and `what` goes to TIMING["uncaptured"]."""
+    not in it). A call that cannot be captured (a host sync) is timed as n
+    back-to-back calls between the two events instead (its host launch gaps
+    in it), and `what` goes to TIMING["uncaptured"]. A call known not to be
+    capturable before it enqueues anything (a pageable copy, which torch
+    refuses at once, leaving the capture empty) takes _back_to_back_ms."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture (cuFFT plans, the allocator)
@@ -218,18 +235,22 @@ def event_ms(fn, n: int = 20, warm: int = 3, what: str = "") -> float:
             err = err or e
     torch.cuda.synchronize()
     if err is not None:
-        graph = None
         TIMING["uncaptured"].append(f"{what or getattr(fn, '__name__', '?')}: "
                                     f"{type(err).__name__}: {str(err)[:120]}")
-    if graph is not None:
-        graph.replay()
-        torch.cuda.synchronize()
-        e0.record()
-        graph.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        TIMING["graph"] += 1
-        return e0.elapsed_time(e1) / n
+        return _back_to_back_ms(fn, n, warm)
+    graph.replay()
+    torch.cuda.synchronize()
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    TIMING["graph"] += 1
+    return e0.elapsed_time(e1) / n
+
+
+def _back_to_back_ms(fn, n: int, warm: int) -> float:
+    """event_ms without a graph: n calls back to back between two events."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -240,6 +261,28 @@ def event_ms(fn, n: int = 20, warm: int = 3, what: str = "") -> float:
     torch.cuda.synchronize()
     TIMING["back_to_back"] += 1
     return e0.elapsed_time(e1) / n
+
+
+# every "The CUDA Graph is empty" warning of the run, by the script's frames
+# that led to it: a capture that recorded nothing is a timing or a graph
+# dispatch that measured nothing
+EMPTY_GRAPHS: list = []
+
+
+def watch_empty_graphs() -> None:
+    import traceback
+    import warnings
+
+    warnings.filterwarnings("always", message="The CUDA Graph is empty")
+    shown = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "The CUDA Graph is empty" in str(message):
+            EMPTY_GRAPHS.append([f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                                 for f in traceback.extract_stack()[:-1]][-6:])
+        shown(message, category, filename, lineno, file, line)
+
+    warnings.showwarning = show
 
 
 def timing_note() -> dict:
@@ -2920,7 +2963,8 @@ def run_ingest(card: str, device) -> tuple[dict, dict]:
     out["h2d"] = {"bytes": blk.numel() * 4,
                   "pinned_ms": event_ms(lambda: pinned.to(device, non_blocking=True), n=10,
                                         what="h2d pinned"),
-                  "pageable_ms": event_ms(lambda: blk.to(device), n=5, what="h2d pageable")}
+                  # a pageable copy synchronises the host: no capture
+                  "pageable_ms": _back_to_back_ms(lambda: blk.to(device), n=5, warm=3)}
     out["h2d"]["pinned_gbs"] = out["h2d"]["bytes"] / out["h2d"]["pinned_ms"] / 1e6
     out["h2d"]["pageable_gbs"] = out["h2d"]["bytes"] / out["h2d"]["pageable_ms"] / 1e6
     del blk, pinned
@@ -3217,6 +3261,495 @@ def run_tools(card: str, device) -> tuple[dict, dict]:
     return out, {k: {"launches": total[k], "checks": at[k]} for k in total}
 
 
+# ------------------------------------------------------- the control plane
+# tests/test_control_plane.py's config, copied (the tests import JAX): a
+# 1.024 Msps complex sig_gen; usb, pm, cwu and a lazy spectrum channel;
+# dyn-slots 3
+CONTROL_CONF = """
+[global]
+hardware = sig_gen
+mode = usb
+update = 5
+dyn-slots = 3
+
+[sig_gen]
+device = sig_gen
+carrier = 201k0
+amplitude = -20
+noise = -130
+samprate = 1m024
+real = no
+
+[hf]
+mode = usb
+samprate = 16k
+freq = 200k0
+
+[vhf]
+mode = pm
+freq = 300k0
+
+[cw]
+mode = cwu
+freq = 150k0
+
+[spect]
+mode = spectrum
+freq = 0
+resolution-bw = 100
+bin-count = 32
+idle-timeout = 0.2
+"""
+CONTROL_FS = 1_024_000
+# the commands of tests/test_control_plane.py, in its order: (ssrc, fields,
+# blocks stepped after); every class of key: runtime keys, the restart
+# classes, the spectrum's geometry, encodings, aggregation, doppler,
+# dynamic creates (a foreground rebuild, then restocks), parking, a poll
+CONTROL_SCRIPT = [
+    (200, {"SQUELCH_OPEN": 9.5, "SQUELCH_CLOSE": 8.5, "HEADROOM": -12.0, "AGC_HANGTIME": 0.5,
+           "AGC_RECOVERY_RATE": 30.0, "AGC_THRESHOLD": -12.0, "SNR_SQUELCH": True,
+           "SHIFT_FREQUENCY": 100.0, "STATUS_INTERVAL": 7}, 2),
+    (200, {"GAIN": 20.0}, 2),
+    (200, {"AGC_ENABLE": True, "KAISER_BETA": 5.0}, 2),
+    (300, {"PL_TONE": 100.0, "THRESH_EXTEND": True}, 1),
+    (150, {"FILTER2_KAISER_BETA": 3.0}, 1),
+    (200, {"PRESET": "pm"}, 2),
+    (200, {"PRESET": "usb"}, 2),
+    (300, {"DEMOD_TYPE": 0}, 1),
+    (300, {"DEMOD_TYPE": 1}, 1),
+    (200, {"OUTPUT_SAMPRATE": 24_000}, 2),
+    (200, {"INDEPENDENT_SIDEBAND": True}, 2),
+    (200, {"PLL_ENABLE": True, "PLL_BW": 25.0, "PLL_SQUARE": True}, 2),
+    (200, {"OUTPUT_CHANNELS": 2}, 1),
+    (200, {"OUTPUT_CHANNELS": 1}, 1),
+    (200, {"FILTER2": 2}, 1),
+    (0, {"SPECTRUM_BASE": -100.0, "SPECTRUM_STEP": 1.0}, 1),
+    (0, {"RESOLUTION_BW": 50.0, "BIN_COUNT": 64, "SPECTRUM_AVG": 4, "WINDOW_TYPE": 5,
+         "SPECTRUM_OVERLAP": 0.5}, 6),
+    (200, {"OUTPUT_ENCODING": 4}, 2),  # F32LE
+    (200, {"MAXDELAY": 3}, 6),
+    (200, {"DOPPLER_FREQUENCY": 50.0, "DOPPLER_FREQUENCY_RATE": 10.0, "LIFETIME": 100,
+           "SETOPTS": 10}, 3),
+    (200, {"DOPPLER_FREQUENCY": 0.0, "DOPPLER_FREQUENCY_RATE": 0.0, "CLEAROPTS": 2}, 1),
+    (7001, {"PRESET": "am", "RADIO_FREQUENCY": 100_000.0}, 1),
+    (7002, {"PRESET": "am", "RADIO_FREQUENCY": 101_000.0}, 1),
+    (7003, {"PRESET": "am", "RADIO_FREQUENCY": 102_000.0}, 1),
+    (7004, {"PRESET": "am", "RADIO_FREQUENCY": 103_000.0}, 1),
+    (7100, {"PRESET": "cwu", "RADIO_FREQUENCY": 150_500.0}, 1),
+    (200, {"RADIO_FREQUENCY": 900_000_000.0}, 1),  # out of coverage: parked
+    (200, {"GAIN": 14.0}, 1),
+    (200, {"RADIO_FREQUENCY": 200_000.0}, 2),
+    (0, {}, 3),  # a bare poll arms the spectrum
+]
+CONTROL_PITCH = 1362.5  # Hz: 27.25 cycles a block, so a repeated block is a phase step
+CONTROL_DOPPLER_HZ_S = -1000.0  # the ramp: the tone walks up 160 Hz a dispatch of 8 blocks
+CONTROL_RAMP = 5  # dispatches of the ramp
+CONTROL_MAXDELAY_DISPATCHES = 2  # held after the first (the retune's turn-on)
+
+
+def control_scene(b: int, L: int, rng) -> np.ndarray:
+    """tests/test_torch_control_plane.py's scene: a carrier 1 kHz above the
+    usb dial, an FM carrier on the pm channel, a tone in the cwu passband,
+    -60 dBFS noise."""
+    t = np.arange(b * L, (b + 1) * L) / CONTROL_FS
+    x = 0.1 * np.exp(2j * np.pi * 201_000 * t)
+    x += 0.05 * np.exp(1j * (2 * np.pi * 300_000 * t + 2.5 * np.sin(2 * np.pi * 1000 * t)))
+    x += 0.02 * np.exp(2j * np.pi * 150_050 * t)
+    x += 1e-3 * (rng.standard_normal(L) + 1j * rng.standard_normal(L))
+    return x.astype(np.complex64)
+
+
+def same_status(a: bytes, b: bytes) -> list:
+    """Fields of two status packets that differ beyond the CPU twins'
+    bounds (tests/torch_parity.py): integers exact, floats rtol 2e-5 (dB
+    powers as linear ones), BIN_DATA within 2e-4 of its largest bin; the
+    wall-clock GPS time and the block-time test point left out."""
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, decode_status
+
+    db = {T.IF_POWER, T.BASEBAND_POWER, T.NOISE_DENSITY, T.OUTPUT_LEVEL, T.GAIN, T.PLL_SNR}
+    (ka, fa, _), (kb, fb, _) = decode_status(a), decode_status(b)
+    if ka != kb or set(fa) != set(fb):
+        return [["fields", sorted(k.name for k in set(fa) ^ set(fb))]]
+    bad = []
+    for k, x in fa.items():
+        y = fb[k]
+        if k in (T.GPS_TIME, T.TP1):
+            continue
+        if isinstance(x, float):
+            x, y = (10.0 ** (x / 10), 10.0 ** (y / 10)) if k in db else (x, y)
+            ok = abs(x - y) <= 2e-5 * abs(x) + 1e-12
+        elif isinstance(x, list):
+            w = np.asarray(x, np.float64)
+            ok = np.abs(np.asarray(y) - w).max(initial=0) <= 2e-4 * np.abs(w).max(initial=0)
+        else:
+            ok = x == y
+        if not ok:
+            bad.append([k.name, str(x)[:40], str(y)[:40]])
+    return bad
+
+
+def same_wire(sa: list, sb: list, registry) -> dict:
+    """Two daemons' packets in order: RTP headers equal and payloads by
+    encoding (s16 within 1 LSB, F32 within one s16 LSB of full scale, the
+    rest exact), status by same_status. Returns counts and the first
+    differences."""
+    from ka9q_radio_tpu_torch.net.rtp import Encoding, RtpHeader
+
+    out = {"packets": len(sa), "data": 0, "status": 0, "bytes_equal": 0, "s16_max_lsb": 0,
+           "f32_max_abs": 0.0, "differ": []}
+    if [k for k, _ in sa] != [k for k, _ in sb]:
+        out["differ"].append(["kinds", len(sa), len(sb)])
+        return out
+    for i, ((kind, a), (_, b)) in enumerate(zip(sa, sb)):
+        out[kind] += 1
+        out["bytes_equal"] += a == b
+        if kind == "status":
+            d = same_status(a, b)
+            if d:
+                out["differ"].append([i, "status", d[:4]])
+            continue
+        (ha, pa), (hb, pb) = RtpHeader.unpack(a), RtpHeader.unpack(b)
+        if (ha.ssrc, ha.seq, ha.timestamp, ha.type, ha.marker) != \
+                (hb.ssrc, hb.seq, hb.timestamp, hb.type, hb.marker) or len(pa) != len(pb):
+            out["differ"].append([i, "header", ha.ssrc])
+            continue
+        enc = registry.table[ha.type][2]
+        if enc in (Encoding.S16BE, Encoding.S16LE):
+            dt = ">i2" if enc == Encoding.S16BE else "<i2"
+            d = int(np.abs(np.frombuffer(pa, dt).astype(np.int32)
+                           - np.frombuffer(pb, dt).astype(np.int32)).max(initial=0))
+            out["s16_max_lsb"] = max(out["s16_max_lsb"], d)
+            ok = d <= 1
+        elif enc == Encoding.F32LE:
+            d = float(np.abs(np.frombuffer(pa, "<f4") - np.frombuffer(pb, "<f4")).max(initial=0))
+            out["f32_max_abs"] = max(out["f32_max_abs"], d)
+            ok = d <= 2.0 ** -15
+        else:
+            ok = pa == pb
+        if not ok:
+            out["differ"].append([i, "payload", ha.ssrc, enc.name])
+    return out
+
+
+def eager_radiod(cls):
+    """The daemon whose _mk_step gives the eager Engine.step (GraphStep.eager):
+    every dispatch eager, nothing captured before it."""
+
+    class EagerRadiod(cls):
+        def _mk_step(self, eng, stepper=None):
+            return super()._mk_step(eng, stepper).eager
+
+        def _prepare_step(self):
+            pass
+
+    return EagerRadiod
+
+
+def control_graph_vs_eager(device) -> dict:
+    """CONTROL_CONF run by two daemons on the card, one dispatching as the
+    daemon does (GraphStep: graph replays) and one eagerly, fed the same
+    blocks and CONTROL_SCRIPT's commands (a background restock landed in
+    both before each block): their packets held to each other (same_wire),
+    kernel A's and B's launches counted per daemon and equal, graph_stats()
+    of the graph daemon (no eager block but the spectrum's warm-up frames)."""
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, encode_status
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    t0 = time.perf_counter()
+    rg = Radiod(load_config(CONTROL_CONF), use_network=False)
+    re_ = eager_radiod(Radiod)(load_config(CONTROL_CONF), use_network=False)
+    init_s = time.perf_counter() - t0
+    daemons = {"graph": rg, "eager": re_}
+    for rd in daemons.values():
+        rd._pool_need = lambda gname: 0  # restocks sized by dyn-slots alone
+    launches = {m: dict.fromkeys(cc.launches, 0) for m in daemons}
+    rng = np.random.default_rng(91)
+    blocks = [0]
+
+    def step(n: int):
+        for _ in range(n):
+            x = control_scene(blocks[0], rg.engine.L, rng)
+            blocks[0] += 1
+            for m, rd in daemons.items():
+                rd._finish_restock(wait=True)
+                before = dict(cc.launches)
+                rd.step_block(block=x)
+                torch.cuda.synchronize()
+                for k in before:
+                    launches[m][k] += cc.launches[k] - before[k]
+
+    step(1)
+    for ssrc, fields, n in CONTROL_SCRIPT:
+        pkt = encode_status({T.OUTPUT_SSRC: ssrc, **{T[k]: v for k, v in fields.items()}},
+                            cmd=True)
+        for rd in daemons.values():
+            rd.handle_packet(pkt)
+        step(n)
+    for rd in daemons.values():
+        rd._finish_restock(wait=True)
+    wire = same_wire(re_._sent, rg._sent, rg.registry)
+    tables = {m: {s: (c.group, c.idx, c.freq, c.samprate, c.encoding, c.maxdelay, c.parked)
+                  for s, c in rd.chans.items()} for m, rd in daemons.items()}
+    stats = rg.graph_stats()
+    eager_why = {**stats["before"]["eager_blocks"]}
+    for why, n in stats["current"]["eager_blocks"].items():
+        eager_why[why] = eager_why.get(why, 0) + n
+    out = {"config": "tests/test_control_plane.py CONF", "init_s": init_s,
+           "blocks": blocks[0], "commands": len(CONTROL_SCRIPT), "wire": wire,
+           "tables_equal": tables["graph"] == tables["eager"],
+           "launches": launches["graph"], "eager_launches": launches["eager"],
+           "groups": {n: g.C for n, g in rg.engine.groups.items()},
+           "graphs": daemon_graphs(rg),
+           "eager_daemon_replays": sum(st["replays"] for st in re_.graph_stats().values())}
+    if wire["differ"] or not out["tables_equal"] or wire["data"] == 0:
+        fail(f"control: the graph daemon differs from the eager one: {wire['differ'][:6]}, "
+             f"tables equal {out['tables_equal']}")
+    if launches["graph"] != launches["eager"] or not launches["graph"]["channelize"] \
+            or not launches["graph"]["noise_est"] or out["eager_daemon_replays"]:
+        fail(f"control: launches graph {launches['graph']}, eager {launches['eager']}")
+    if any("spectrum warm-up" not in why for why in eager_why) \
+            or stats["current"]["dispatch"] != "cuda graph" \
+            or stats["current"]["replays"] + stats["before"]["replays"] < blocks[0] // 2:
+        fail(f"control: graph daemon dispatch {stats['current']['dispatch']}, eager blocks "
+             f"{eager_why}, replays {stats['current']['replays']} + {stats['before']['replays']}")
+    # both kernels against their plain versions at the usb group's shapes
+    eng = rg.engine
+    _, F = master_fft(eng.master, eng.init_state()["master"],
+                      torch.as_tensor(control_scene(0, eng.L, rng), device=device))
+    out["kernels"] = {k["name"]: k for k in check_kernels(eng, rg.params, F, "hf")}
+    return out
+
+
+def control_flagship(device, conf_text: str, dial: float, k: int) -> tuple[dict, object]:
+    """The flagship daemon (the `daemon` phase's config, every dispatch a
+    graph replay) driven through the control plane on the carrier's channel
+    k: a doppler ramp (the tone's pitch walks CONTROL_DOPPLER_HZ_S, ±10 Hz a
+    dispatch, and comes back to 1,500 Hz when the ramp is cancelled);
+    KAISER_BETA and GAIN (the same engine, the level the gain sets);
+    MAXDELAY = 3 with the channel retuned to a pitch of CONTROL_PITCH (the
+    group leaves the native edge; each flush carries 3 x 240 samples, the
+    tone's phase continuous over every join); a preset switch to lsb (a
+    rebuild, a new graph, the tone at 1,500 Hz)."""
+    import select
+    import socket
+
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, encode_status
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    dport = int(conf_text.split("data = 127.0.0.1:", 1)[1].split()[0])
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+    rx.bind(("127.0.0.1", dport))
+    rx.setblocking(False)
+    t0 = time.perf_counter()
+    rd = Radiod(load_config(conf_text), use_network=True)
+    init_s = time.perf_counter() - t0
+    ch = next(c for c in rd.chans.values() if c.group == "hf" and c.idx == k)
+    ssrc, D, L = ch.ssrc, max(rd._time_shards, 1), rd.engine.L
+    rate = rd.engine.groups["hf"].spec.samprate
+    pkts: list = []
+    expect = {"channelize": 0, "noise_est_due": 0}
+    tag = [0]
+
+    def drain() -> list:
+        got = []
+        while select.select([rx], [], [], 0)[0]:
+            h, payload = RtpHeader.unpack(rx.recv(65536))
+            if h.ssrc == ssrc:
+                got.append((h.seq, h.timestamp, payload))
+        return got
+
+    def dispatch(n: int = 1) -> list:
+        got = []
+        for _ in range(n):
+            j0 = rd.state["host"]["jobnum"]
+            tiled = sum(1 for g in rd.engine.groups.values() if g.tiled and g.tile_E is not None)
+            rd.step_block()
+            expect["channelize"] += D * tiled
+            expect["noise_est_due"] += sum(1 for b in range(j0, j0 + D)
+                                           if b % rd.engine.noise_every == 0)
+            got += drain()
+        pkts.extend(got)
+        return got
+
+    def audio(got) -> np.ndarray:
+        return np.concatenate([np.frombuffer(p, ">i2") for _, _, p in sorted(got)]
+                              or [np.zeros(0, ">i2")]).astype(np.float64)
+
+    def command(**kv):
+        tag[0] += 1
+        rd.handle_packet(encode_status({T.OUTPUT_SSRC: ssrc, T.COMMAND_TAG: tag[0],
+                                        **{T[key]: v for key, v in kv.items()}}, cmd=True))
+
+    def info(key):
+        return float(rd._ginfo[ch.group][key][ch.idx]) if ch.group in rd._ginfo \
+            else float(ch.last_info[key][ch.idx])
+
+    dispatch(4)  # warm-up: cuFFT plans, the AGC
+    cc.reset_launches()
+    expect.update(channelize=0, noise_est_due=0)
+    out = {"config": str(WSPR_CONF.relative_to(ROOT)), "init_s": init_s, "channels":
+           rd.engine.groups["hf"].C, "time_shards": D, "carrier_ssrc": ssrc,
+           "tone_hz": peak_hz(audio(dispatch(2)), rate)}
+    if abs(out["tone_hz"] - 1500.0) > 10.0:
+        fail(f"control: the carrier's channel peaks at {out['tone_hz']} Hz, want 1500")
+    eng0 = rd.engine
+
+    # the doppler ramp: the tuning walks CONTROL_DOPPLER_HZ_S, a step a dispatch
+    command(DOPPLER_FREQUENCY=0.0, DOPPLER_FREQUENCY_RATE=CONTROL_DOPPLER_HZ_S)
+    ramp = []
+    for d in range(1, CONTROL_RAMP + 1):
+        want = 1500.0 - CONTROL_DOPPLER_HZ_S * rd.cfg.blocktime * D * d
+        ramp.append([want, peak_hz(audio(dispatch()), rate)])
+    command(DOPPLER_FREQUENCY=0.0, DOPPLER_FREQUENCY_RATE=0.0)
+    dispatch()  # the retune's turn-on
+    back = peak_hz(audio(dispatch()), rate)
+    out["doppler"] = {"rate_hz_s": CONTROL_DOPPLER_HZ_S, "hz_per_dispatch":
+                      -CONTROL_DOPPLER_HZ_S * rd.cfg.blocktime * D,
+                      "want_got_hz": ramp, "after_cancel_hz": back}
+    if any(abs(w - g) > 10.0 for w, g in ramp) or abs(back - 1500.0) > 10.0 or rd.doppler:
+        fail(f"control: doppler ramp {ramp}, after the cancel {back} Hz")
+
+    # KAISER_BETA and GAIN act on the same engine, its graphs as they were
+    g = rd.engine.groups["hf"]
+    resp0 = g.host["responses"][k].copy()
+    n_graphs = len(rd._stepper.graphs)
+    command(KAISER_BETA=3.0)
+    dispatch()
+    beta_hz = peak_hz(audio(dispatch()), rate)
+    command(GAIN=20.0)
+    dispatch()
+    a = audio(dispatch()) / 32768.0
+    bb = info("baseband_power")
+    gain_db = 10 * np.log10(np.mean(a * a) / max(bb, 1e-30))
+    out["kaiser_gain"] = {
+        "responses_changed": not np.array_equal(resp0, g.host["responses"][k]),
+        "tone_hz_after_beta": beta_hz, "agc_enable": bool(g.host["demod"]["agc_enable"][k]),
+        "manual_gain": float(g.host["demod"]["manual_gain"][k]),
+        "output_over_baseband_db": gain_db, "same_engine": rd.engine is eng0,
+        "graphs_before": n_graphs, "graphs_after": len(rd._stepper.graphs)}
+    kg = out["kaiser_gain"]
+    # GAIN = 20 dB on the real part of a complex tone: output = baseband
+    # power x 100 / 2, 16.99 dB
+    if not (kg["responses_changed"] and kg["same_engine"] and abs(beta_hz - 1500.0) <= 10.0
+            and not kg["agc_enable"] and abs(kg["manual_gain"] - 10.0) < 1e-4
+            and abs(gain_db - (20.0 - 10 * np.log10(2.0))) <= 1.0
+            and kg["graphs_after"] == n_graphs):
+        fail(f"control: KAISER_BETA / GAIN: {kg}")
+
+    # MAXDELAY = 3 (the gain left manual: a steady level to fit the tone to) at a pitch whose block is not whole cycles: the group
+    # leaves the native edge, each flush carries 3 blocks, no block
+    # repeated or replaced
+    command(MAXDELAY=3, RADIO_FREQUENCY=dial + 1500.0 - CONTROL_PITCH)
+    if "hf" in rd.edges:
+        fail("control: MAXDELAY = 3 left the group on the native edge")
+    dispatch()  # the retune's turn-on
+    t_md = time.perf_counter()
+    got = sorted(dispatch(CONTROL_MAXDELAY_DISPATCHES))
+    md_s = time.perf_counter() - t_md
+    x = audio(got)
+    seqs = [s for s, _, _ in got]
+    sizes = [len(p) // 2 for _, _, p in got]
+    ts = [t for _, t, _ in got]
+    contiguous = (seqs == list(range(seqs[0], seqs[0] + len(seqs)))
+                  and all(t1 - t0 == n for t0, t1, n in zip(ts, ts[1:], sizes)))
+    flush = 3 * rd.engine.groups["hf"].olen
+    n = np.arange(x.size)
+    w = 2 * np.pi * CONTROL_PITCH / rate
+    basis = np.stack([np.cos(w * n), np.sin(w * n), np.ones_like(x)], 1)
+    coef = np.linalg.lstsq(basis, x, rcond=None)[0]
+    amp = float(np.hypot(coef[0], coef[1]))
+    resid = x - basis @ coef
+    # each block's residual RMS over the tone's: the noise gives about 0.02,
+    # a block repeated or replaced (a quarter cycle off) about 1.4
+    per_block = (np.sqrt(np.mean(resid[: x.size // 240 * 240].reshape(-1, 240) ** 2, 1))
+                 / max(amp / np.sqrt(2.0), 1e-9))
+    out["maxdelay"] = {"packets": len(got), "samples": int(x.size), "flush_samples": flush,
+                       "packet_samples": sorted(set(sizes)), "contiguous": contiguous,
+                       "tone_hz": peak_hz(x, rate), "amplitude_lsb": amp,
+                       "worst_block_residual_rms": float(per_block.max()),
+                       "native_edge": "hf" in rd.edges,
+                       "ms_per_dispatch_python_path": md_s * 1e3 / CONTROL_MAXDELAY_DISPATCHES}
+    # whole flushes: the dispatches' blocks, give or take the 2 a flush
+    # can hold over a dispatch's end
+    if not (contiguous and x.size % flush == 0
+            and abs(x.size - CONTROL_MAXDELAY_DISPATCHES * D * 240) <= 2 * 240
+            and sum(sizes[:2]) == flush and amp > 100 and per_block.max() < 0.25):
+        fail(f"control: MAXDELAY = 3: {out['maxdelay']}")
+
+    # a preset switch: the channel moves to an lsb class (a rebuild and its
+    # graphs), tuned 1,500 Hz above the carrier
+    engines0 = rd.graph_stats()["before"]["engines"]
+    command(PRESET="lsb", RADIO_FREQUENCY=dial + 3000.0, MAXDELAY=0)
+    ch = rd.chans[ssrc]
+    dispatch()
+    lsb_hz = peak_hz(audio(dispatch()), rate)
+    after = rd.graph_stats()
+    out["preset"] = {"group": ch.group, "demod": rd.engine.groups[ch.group].spec.demod,
+                     "tone_hz": lsb_hz, "engines_before": after["before"]["engines"],
+                     "captures": after["current"]["captures"],
+                     "capture_ms": after["current"]["capture_ms"],
+                     "replays": after["current"]["replays"]}
+    if (ch.group == "hf" or ch.preset != "lsb" or abs(lsb_hz - 1500.0) > 10.0
+            or after["before"]["engines"] != engines0 + 1
+            or after["current"]["captures"] == 0 or after["current"]["replays"] < 2):
+        fail(f"control: the preset switch: {out['preset']}")
+    launches = dict(cc.launches)
+    out.update(launches=launches, expected=expect, graphs=daemon_graphs(rd),
+               block_drops=rd.block_drops)
+    if launches["channelize"] != expect["channelize"] \
+            or launches["noise_est"] < expect["noise_est_due"]:
+        fail(f"control: launches {launches}, want channelize {expect['channelize']}, "
+             f"noise_est at least {expect['noise_est_due']}")
+    for edge, _ in rd.edges.values():
+        edge.close()
+    rx.close()
+    return out, rd
+
+
+def run_control(card: str, device) -> tuple[dict, dict]:
+    """The control plane on the card: (a) the flagship through doppler,
+    KAISER_BETA, GAIN, MAXDELAY and a preset switch as graph replays; (b)
+    tests/test_control_plane.py's config and script, graph daemon against
+    eager daemon. Returns (the phase's JSON, per kernel its launches and
+    checks)."""
+    t_phase = time.perf_counter()
+    text, reduced, dial = daemon_config(_free_port(), _free_port())
+    flag, rd = control_flagship(device, text, dial, DAEMON_K)
+    # A and B at the flagship's shapes, on the engine the phase left
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft
+
+    blk = float(np.sqrt(1.585e-14 * rd.engine.samprate / 2.0)) * torch.randn(
+        rd.engine.L, generator=torch.Generator(device=device).manual_seed(8), device=device)
+    _, F = master_fft(rd.engine.master, rd.engine.init_state()["master"], blk)
+    at_flag = {k["name"]: k for k in check_kernels(rd.engine, rd.params, F)}
+    del rd, F
+    torch.cuda.empty_cache()
+    small = control_graph_vs_eager(device)
+    keys = ("max_abs_err", "err_bound", "max_rel_err", "keys_equal", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call", "shape")
+    per_kernel = {}
+    for name in ("channelize", "noise_est"):
+        per_kernel[name] = {
+            "launches": flag["launches"][name] + small["launches"][name],
+            "flagship": {"launches": flag["launches"][name],
+                         **{k: at_flag[name][k] for k in keys if k in at_flag[name]}},
+            "control_conf": {"launches": small["launches"][name],
+                             **{k: small["kernels"][name][k] for k in keys
+                                if k in small["kernels"][name]}}}
+    small["kernels"] = {n: v["control_conf"] for n, v in per_kernel.items()}
+    out = {"phase": "control", "card": card, "flagship": {"reduced": reduced, **flag},
+           "graph_vs_eager": small, "kernels": per_kernel,
+           "seconds": time.perf_counter() - t_phase}
+    return out, per_kernel
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -3231,6 +3764,7 @@ def main() -> None:
     if Path(port.__file__).resolve().parent != ROOT / "ka9q_radio_tpu_torch":
         fail(f"imported {port.__file__}, not this checkout's package")
     device = torch.device("cuda")
+    watch_empty_graphs()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
 
@@ -3540,10 +4074,23 @@ def main() -> None:
         kern["tools_launches"] = at_tools[kern["name"]]["launches"]
         kern["at_tools"] = at_tools[kern["name"]]["checks"]
 
+    # phase 21: the control plane: the flagship through doppler, KAISER_BETA,
+    # GAIN, MAXDELAY and a preset switch as graph replays; the control-plane
+    # tests' config and script, graph daemon against eager daemon
+    ctl, at_ctl = run_control(card, device)
+    emit(ctl)
+    for kern in kernels[:2]:
+        kern["control_launches"] = at_ctl[kern["name"]]["launches"]
+        kern["at_control"] = at_ctl[kern["name"]]
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules or any(n == "ka9q_radio_tpu" or n.startswith("ka9q_radio_tpu.")
                                    for n in sys.modules):
         fail("the port pulled in jax or the JAX package")
-    emit({"kernels": kernels, "card": card, "profiler": PROFILER})
+    if EMPTY_GRAPHS:
+        fail(f"{len(EMPTY_GRAPHS)} CUDA graph captures recorded nothing: {EMPTY_GRAPHS[:4]}")
+    emit({"kernels": kernels, "card": card, "profiler": PROFILER,
+          "empty_graph_captures": len(EMPTY_GRAPHS)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -99,8 +99,10 @@ def _run_pll(bb, state, params, samprate: int):
     loop_bw = params["pll_loop_bw"] / samprate  # cycles/sample
     bw = torch.where(state["pll_lock"], loop_bw * 0.1, loop_bw)
     k1, k2 = pll_params(bw, LINEAR_DEFAULTS["pll_damping"])
-    mixed, pll_st, signal, noise = cuda_pll_scan(bb, state["pll"], k1, k2, state["pll_lock"],
-                                                 params["pll_square"])
+    # the kernel takes whole rows: after filter2 the block is a column
+    # slice of the second stage's output
+    mixed, pll_st, signal, noise = cuda_pll_scan(bb.contiguous(), state["pll"], k1, k2,
+                                                 state["pll_lock"], params["pll_square"])
     snr = torch.where(noise > 0, torch.clamp(signal / torch.clamp(noise, min=1e-30) - 1.0, min=0.0),
                       float("inf"))
     # lock detector with hysteresis (linear.c:162-180)

@@ -91,9 +91,16 @@ def _out_format(spec) -> tuple[int, int]:
 def _host_copy(tree, device: torch.device):
     """Device->host copy of a tree of tensors as numpy arrays: every leaf
     into pinned memory with non_blocking=True, then ONE synchronisation on
-    an event (a .cpu() per leaf would synchronise once per leaf)."""
+    an event (a .cpu() per leaf would synchronise once per leaf).
+
+    Every leaf is fresh host memory on every device and every dispatch: the
+    host keeps what a dispatch returns past the next one (the aggregation
+    queue `ch.agg`, `ch.last_info`, `_ginfo`, `_send_prev`), while the next
+    dispatch of the same graph key overwrites a graph's outputs in place
+    (runtime/graphs.py). A view would turn a queued block into a later
+    block's samples."""
     if device.type != "cuda":
-        return _map_tree(tree, lambda t: t.numpy())
+        return _map_tree(tree, lambda t: t.numpy().copy())
     bufs = _map_tree(tree, lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      .copy_(t, non_blocking=True))
     ev = torch.cuda.Event()
@@ -941,9 +948,13 @@ class Radiod:
             self._rebuild([new_spec if s.name == gname else s for s in self.engine.specs])
             slot, extra = g.C, range(g.C + 1, g.C + count)
         # seed the class's restock-latency estimate from this foreground
-        # rebuild so provisioning adapts before the first background grow;
-        # the EMA corrects it once real grows land
-        self._restock_latency.setdefault(gname, _time.monotonic() - _t0)
+        # rebuild so provisioning adapts before the first background grow,
+        # floored at 30 s as the JAX daemon floors it: the rebuild of a
+        # small class is quick, while a background restock builds the
+        # GROWN table (and captures its graphs) queued behind other
+        # classes, so the optimistic number under-provisions the first
+        # cycle. The EMA corrects it once real grows land
+        self._restock_latency.setdefault(gname, max(_time.monotonic() - _t0, 30.0))
         for s in extra:
             self._mute_slot(gname, s)
         self.free_slots.setdefault(gname, []).extend(extra)
@@ -1861,14 +1872,18 @@ class Radiod:
     # ---------------------------------------------------------------- main
     def _steer_doppler(self):
         """Advance doppler-steered channels (DOPPLER_FREQUENCY[_RATE]):
-        per-block retune with the accumulated offset — pure params surgery,
-        nothing rebuilt (satellite tracking, radio.h doppler fields)."""
+        a retune a dispatch with the accumulated offset — pure params
+        surgery, nothing rebuilt (satellite tracking, radio.h doppler
+        fields). The offset advances by the dispatch's blocks (D with
+        `time-shards = D`), so the tuning walks at the commanded rate in
+        steps of a dispatch; the JAX daemon advances one block's worth a
+        dispatch (ROADMAP Queue 3)."""
         for ssrc, dop in list(self.doppler.items()):
             ch = self.chans.get(ssrc)
             if ch is None:
                 del self.doppler[ssrc]
                 continue
-            dop[0] += dop[1] * self.cfg.blocktime
+            dop[0] += dop[1] * self.cfg.blocktime * (self._time_shards or 1)
             base = ch.freq
             self._retune(ch, ch.freq + dop[0])
             ch.freq = base  # doppler offsets don't move the dial frequency

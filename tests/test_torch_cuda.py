@@ -219,6 +219,56 @@ def test_radiod_on_cuda_matches_cpu(cuda, extra, real):
         assert np.abs(d).max(initial=0) <= 1
 
 
+def test_pll_after_isb_on_cuda_matches_cpu(cuda):
+    """ISB, then the PLL, on the carrier's channel: a filter2 class whose
+    second stage leaves the block a column slice, which the PLL kernel's
+    wrapper refuses; the demodulator hands it whole rows, the card's
+    daemon captures the class's graphs, and its samples are the CPU
+    daemon's within 2e-3 of the peak (the PLL's bound in
+    test_every_demod_on_card_matches_cpu), the PLL kernel launched every
+    block."""
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, encode_status
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    conf = _DAEMON_CONF.format(extra="", real="no")
+    rc = Radiod(load_config(conf), use_network=False, device="cuda")
+    rh = Radiod(load_config(conf), use_network=False, device="cpu")
+    rng = np.random.default_rng(10)
+    L = rc.engine.L
+
+    def step(b):
+        n = np.arange(b * L, (b + 1) * L) / 1_024_000
+        x = (0.1 * np.exp(2j * np.pi * 60_700 * n)
+             + 1e-3 * (rng.standard_normal(n.size) + 1j * rng.standard_normal(n.size)))
+        for rd in (rc, rh):
+            rd.step_block(block=x.astype(np.complex64))
+
+    step(0)
+    for b, fields in enumerate(({T.INDEPENDENT_SIDEBAND: True, T.RADIO_FREQUENCY: 60_700.0},
+                                {T.PLL_ENABLE: True, T.PLL_BW: 25.0})):
+        pkt = encode_status({T.OUTPUT_SSRC: 60, **fields}, cmd=True)
+        for rd in (rc, rh):
+            rd.handle_packet(pkt)
+        step(1 + b)
+    spec = rc.engine.groups[rc.chans[60].group].spec
+    assert spec.isb and spec.enable_pll and spec.filter2 >= 1
+    tcc.reset_launches()
+    for b in range(3, 9):
+        step(b)
+    assert tcc.launches["pll_scan"] == 6
+    assert rc.graph_stats()["current"]["replays"] >= 5
+    assert [k for k, _ in rc._sent] == [k for k, _ in rh._sent]
+    for (kind, a), (_, b) in zip(rc._sent, rh._sent):
+        if kind != "data":
+            continue
+        (ha, pa), (hb, pb) = RtpHeader.unpack(a), RtpHeader.unpack(b)
+        assert (ha.ssrc, ha.seq, ha.timestamp, ha.type) == (hb.ssrc, hb.seq, hb.timestamp, hb.type)
+        xa, xb = (np.frombuffer(p, ">i2").astype(np.float64) for p in (pa, pb))
+        assert np.abs(xa - xb).max(initial=0) <= max(2e-3 * np.abs(xb).max(initial=0), 1.0)
+
+
 def test_radiod_rebuild_and_restock_on_cuda(cuda):
     """Dynamic creates on the card: a foreground table rebuild, then a
     background restock whose engine is built on a side stream and swapped

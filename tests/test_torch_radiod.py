@@ -35,11 +35,9 @@ from ka9q_radio_tpu_torch.net.status import PacketType, decode_status, encode_st
 from ka9q_radio_tpu_torch.runtime import radiod as tradiod
 from ka9q_radio_tpu_torch.runtime import state_from_jax
 from test_radiod import CONF
+from torch_parity import FIELD_TOL, FS, UNTIMED
 
 torch.set_num_threads(2)
-
-FS = 1_024_000
-UNTIMED = {T.GPS_TIME, T.TP1}  # wall clock and block time: not a function of the input
 
 
 def _daemons(conf: str = CONF):
@@ -62,20 +60,6 @@ def _step_both(jr, tr, nblocks: int, rng, **kw):
         x = _block(tr.blocks, tr.engine.L, rng, **kw)
         jr.step_block(block=x)
         tr.step_block(block=x)
-
-
-# (rtol, atol) of the demodulators' readouts where 2e-5 cannot hold: the
-# frequency offsets are means over a block, zero up to rounding here, which
-# the packages sum in another order (1e-3 Hz); the CTCSS deviation is read
-# off the Goertzel resonator, which XLA runs with a contracted multiply-add
-# (test_torch_demods holds it to 1e-3); the PLL's phase and offset follow
-# its VCO word, held there to 1e-6 rev; the FM SNR goes through i0e/i1e,
-# whose torch and XLA versions differ by a few ulp (1e-3 dB); the peak
-# deviation is the largest of a block's discriminator outputs, each an atan2
-# that the two libraries round apart (1e-4)
-FIELD_TOL = {T.FREQ_OFFSET: (2e-5, 1e-3), T.PL_DEVIATION: (1e-3, 0.0),
-             T.PLL_PHASE: (0.0, 1e-5), T.FM_SNR: (0.0, 1e-3),
-             T.PEAK_DEVIATION: (1e-4, 0.0)}
 
 
 def assert_same_status(pj: bytes, pt: bytes):
