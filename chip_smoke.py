@@ -92,7 +92,7 @@ bench.py's configurations (rx888, rx888x16, hf32000, nbfm400, wfm, linear8:
 finite output, A and B by the counters, peak device memory),
 tools/bench_highc_torch.py for 10 s in a subprocess (it must exit 0), and
 tools/prof_master_torch.py's ablation on 1 and 4 shards of the card.
-Last, the `control` phase, the daemon's control plane on the card: the
+Then the `control` phase, the daemon's control plane on the card: the
 rx888-wspr farm (its own Radiod, every dispatch a graph replay) driven on
 the carrier's channel through a doppler ramp (the tone's pitch walks at the
 commanded rate, within 10 Hz a dispatch, and returns to 1,500 Hz when the
@@ -105,6 +105,18 @@ tests/test_control_plane.py's config and command script run by two daemons
 on the card, one as graph replays and one whose _mk_step gives the eager
 step, their packets held to each other, kernels A and B counted in each
 (equal) and held against their plain versions at both configs' shapes.
+Last, the `calibration` phase, what the radio reports held to the physics of
+a known scene: the rx888 master at full width with, beside the `hf` group,
+an `iq` group (16 kHz, AGC off, +/-6 kHz) and a `stop` group (+/-5 kHz at 12
+kHz, Kaiser beta 11), as graph replays on noise of a known density with
+carriers on master bin centres (N0 within 1 dB on every channel of both
+groups, the white-noise gain within 5% of 2 B/fs x the input variance, a
+carrier 3 kHz past a +/-5 kHz edge at least 60 dB down, SNR within 0.75 dB
+of analytic and the carrier within 0.1 dB); tests/test_engine.py's 2,000 FM
+channels as graph replays; kernels A and B at those shapes against their
+plain versions; and two daemons on the card in spectrum-format = byte and =
+rice polled on one sweep, their levels equal. `python3 chip_smoke.py
+--calibration` builds the kernels and runs this phase alone.
 
 Kernel times come from CUDA events around a CUDA graph of n calls (a call
 that cannot be captured: n back-to-back calls, named in its phase's line),
@@ -3750,7 +3762,313 @@ def run_control(card: str, device) -> tuple[dict, dict]:
     return out, per_kernel
 
 
-def main() -> None:
+# ---------------------------------------------- the radio's calibration
+CAL_N0 = 1e-13  # the calibration scene's noise density, power/Hz (-130 dBFS/Hz)
+CAL_C = 32  # channels of each calibration group
+CAL_BLOCKS = 25  # blocks of the scene, tests/test_engine.py:125's (the first CAL_SKIP: turn-on)
+CAL_SKIP = 4
+CAL_SNR_AMP = 0.01  # the SNR carrier's amplitude (tests/test_engine.py:160's)
+CAL_STOP_AMP = 0.3  # the stopband pair's amplitude: in band and 3 kHz past the edge
+CAL_IQ_BW, CAL_STOP_EDGE, CAL_STOP_OFFSET = 12_000.0, 5_000.0, 8_000.0
+CAP_FS, CAP_C, CAP_BLOCKS = 2_048_000, 2000, 6  # tests/test_engine.py:143's capacity group
+SPECTRUM_FMT_CONF = """
+[global]
+hardware = sig_gen
+update = 2
+spectrum-format = {fmt}
+[sig_gen]
+device = sig_gen
+carrier = 250k0
+amplitude = -6
+noise = -120
+samprate = 1m024
+real = no
+[sweep]
+mode = spectrum
+samprate = 32k
+resolution-bw = 2k
+bin-count = 64
+freq = 240k0
+"""  # tests/test_spectrum.py:79's config, the format filled in
+
+
+def calibration_groups(rt):
+    """bench.py's rx888 groups, and beside them the calibration groups
+    built to the JAX tests' filters: `iq` (tests/test_engine.py:125, :160:
+    16 kHz, AGC off, +/-6 kHz) and `stop` (tests/test_filterbank.py:112:
+    +/-5 kHz at 12 kHz, Kaiser beta 11), CAL_C channels each across the
+    band, every dial on a master bin centre (fs/N = 40 Hz)."""
+    from ka9q_radio_tpu_torch.ops.filterbank import MasterConfig
+
+    hz = FS / MasterConfig.from_rate(FS).N
+
+    def dials(lo, hi):
+        return [float(np.round(f / hz) * hz) for f in np.linspace(lo * FS, hi * FS, CAL_C)]
+
+    ch = rt.ChannelSpec
+    return rx888_groups(rt) + [
+        rt.GroupSpec(name="iq", demod="iq", samprate=16_000, agc=False,
+                     channels=tuple(ch(freq=f, low=-CAL_IQ_BW / 2, high=CAL_IQ_BW / 2, gain_db=0.0)
+                                    for f in dials(0.03, 0.46))),
+        rt.GroupSpec(name="stop", demod="iq", samprate=12_000, agc=False, kaiser_beta=11.0,
+                     channels=tuple(ch(freq=f, low=-CAL_STOP_EDGE, high=CAL_STOP_EDGE, gain_db=0.0)
+                                    for f in dials(0.035, 0.465))),
+    ]
+
+
+def calibration_scene(eng, device, seed: int = 31):
+    """The scene: real noise of density CAL_N0, the SNR carrier at iq
+    channel 5's dial, a CAL_STOP_AMP carrier at stop channel 9's dial (in
+    band) and one CAL_STOP_OFFSET above stop channel 21's dial (3 kHz past
+    its +/-5 kHz edge), each on a master bin centre. Returns (block maker
+    b -> [L] float32 on the card, the carriers' channels)."""
+    m, L = eng.master, eng.L
+    hz = eng.samprate / m.N
+    iq = [c.freq for c in eng.groups["iq"].spec.channels]
+    stop = [c.freq for c in eng.groups["stop"].spec.channels]
+    where = {"snr": ("iq", 5), "inband": ("stop", 9), "outband": ("stop", 21)}
+    bins = {"snr": round(iq[5] / hz), "inband": round(stop[9] / hz),
+            "outband": round((stop[21] + CAL_STOP_OFFSET) / hz)}
+    amps = {"snr": CAL_SNR_AMP, "inband": CAL_STOP_AMP, "outband": CAL_STOP_AMP}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    std = float(np.sqrt(CAL_N0 * eng.samprate / 2.0))  # real stream: fs/2 of bandwidth
+
+    def block(b: int) -> torch.Tensor:
+        n = torch.arange(L, dtype=torch.int64, device=device) + b * L
+        sig = sum(amps[k] * torch.cos((2 * np.pi / m.N)
+                                      * torch.remainder(n * bins[k], m.N).to(torch.float64))
+                  for k in bins)
+        return sig.to(torch.float32) + std * torch.randn(L, generator=gen, device=device)
+
+    return block, where
+
+
+def calibration_engine(rt, device) -> dict:
+    """The rx888 master with the calibration groups through GraphStep (as
+    CUDA graph replays): N0 on every calibration channel against CAL_N0,
+    the iq channels' white-noise gain against 2 B/fs x the input variance,
+    the stopband, the SNR and the carrier's baseband power; kernels A and B
+    at both groups' shapes against their plain versions, their launches by
+    the counters."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft
+    from ka9q_radio_tpu_torch.runtime.graphs import GraphStep
+
+    t0 = time.perf_counter()
+    eng = rt.Engine(samprate=FS, real=True, groups=calibration_groups(rt))
+    params = eng.init_params()
+    block, where = calibration_scene(eng, device)
+    _, F = master_fft(eng.master, eng.init_state()["master"], block(0))
+    checks = {g: {k["name"]: k for k in check_kernels(eng, params, F, g)} for g in ("iq", "stop")}
+    del F
+    build_s = time.perf_counter() - t0
+    gs = GraphStep(eng)
+    state = eng.init_state()
+    cc.reset_launches()
+    bb = {g: [] for g in ("iq", "stop")}
+    for b in range(CAL_BLOCKS):
+        state, out = gs(state, params, block(b))
+        if b >= CAL_SKIP:  # the graph's outputs are overwritten by the next replay: copies
+            for g in bb:
+                bb[g].append(out[g]["info"]["baseband_power"].double().cpu())
+    torch.cuda.synchronize()
+    launches = {k: cc.launches[k] for k in ("channelize", "noise_est")}
+    expect = expected_launches(eng, 0, CAL_BLOCKS)
+    n0 = {g: out[g]["info"]["n0"].double().cpu().numpy() for g in bb}
+    finite = outputs_finite(out)
+    stats = gs.graph_stats()
+    pw = {g: torch.stack(v).mean(0).numpy() for g, v in bb.items()}
+    # N0 on every channel of both groups
+    dev = {g: 10 * np.log10(n0[g] / CAL_N0) for g in n0}
+    worst_g = max(dev, key=lambda g: np.abs(dev[g]).max())
+    worst_i = int(np.argmax(np.abs(dev[worst_g])))
+    # white-noise gain: the iq channels without a carrier against N0 B
+    # (2 B/fs x the input variance N0 fs/2)
+    quiet = [i for i in range(CAL_C) if i != where["snr"][1]]
+    gain_want = 2.0 * CAL_IQ_BW / eng.samprate * (CAL_N0 * eng.samprate / 2.0)
+    gain_got = float(pw["iq"][quiet].mean())
+    # the stopband: stop channel 21's output over stop channel 9's
+    stop_db = float(10 * np.log10(pw["stop"][where["outband"][1]] / pw["stop"][where["inband"][1]]))
+    # SNR of the carrier's channel: baseband power over N0 B, against
+    # analytic (a real cosine of amplitude a: a^2/2 at baseband)
+    g, i = where["snr"]
+    p_sig = CAL_SNR_AMP**2 / 2.0
+    bb_db = float(10 * np.log10(pw[g][i]))
+    snr_db = bb_db - float(10 * np.log10(n0[g][i] * CAL_IQ_BW))
+    snr_want = float(10 * np.log10(p_sig / (CAL_N0 * CAL_IQ_BW)))
+    # the carrier alone: the channel's power less its noise N0 B
+    carrier_db = float(10 * np.log10(pw[g][i] - CAL_N0 * CAL_IQ_BW))
+    return {
+        "engine_s": build_s, "blocks": CAL_BLOCKS, "skip": CAL_SKIP, "n0_scene": CAL_N0,
+        "groups": {n: {"C": gg.C, "n_bins": gg.n_bins, "olen": gg.olen, "samprate":
+                       gg.spec.samprate, "kaiser_beta": gg.spec.kaiser_beta}
+                   for n, gg in eng.groups.items() if n in ("iq", "stop", "hf")},
+        "n0_worst": {"group": worst_g, "channel": worst_i,
+                     "freq": eng.groups[worst_g].spec.channels[worst_i].freq,
+                     "dev_db": float(dev[worst_g][worst_i])},
+        "n0_max_abs_dev_db": {g: float(np.abs(v).max()) for g, v in dev.items()},
+        "n0_median_dev_db": {g: float(np.median(v)) for g, v in dev.items()},
+        "noise_gain": {"got": gain_got, "want": gain_want, "rel_err": gain_got / gain_want - 1.0,
+                       "channels": len(quiet)},
+        "stopband_db": stop_db,
+        "snr": {"got_db": snr_db, "want_db": snr_want, "err_db": snr_db - snr_want,
+                "baseband_db": bb_db, "baseband_want_db": float(10 * np.log10(p_sig + CAL_N0
+                                                                                * CAL_IQ_BW)),
+                "carrier_db": carrier_db, "carrier_want_db": float(10 * np.log10(p_sig))},
+        "launches": launches, "expected": expect, "finite": finite,
+        "graphs": graph_summary(stats), "kernels": checks}
+
+
+def capacity_engine(rt, device) -> dict:
+    """tests/test_engine.py:143's 2,000 FM channels on a 2.048 Msps complex
+    master (the reference's cap, radio.h:343-344) as CUDA graph replays:
+    FM carriers in every 100th channel over noise; [2000, 160] finite
+    audio every block, the kernels by the counters and at its shapes."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.runtime.graphs import GraphStep
+
+    freqs = np.linspace(-0.45 * CAP_FS, 0.45 * CAP_FS, CAP_C)
+    eng = rt.Engine(samprate=CAP_FS, real=False, groups=[rt.GroupSpec(
+        name="scan", demod="fm", samprate=8000,
+        channels=tuple(rt.ChannelSpec(freq=float(f), low=-3000.0, high=3000.0) for f in freqs))])
+    params = eng.init_params()
+    L = eng.L
+    gen = torch.Generator(device=device).manual_seed(33)
+    fc = torch.as_tensor(freqs[::100], dtype=torch.float64, device=device)[:, None]
+
+    def block(b: int) -> torch.Tensor:
+        t = (torch.arange(L, dtype=torch.float64, device=device) + b * L) / CAP_FS
+        ph = 2 * np.pi * fc * t + 1.5 * torch.sin(2 * np.pi * 1000.0 * t)
+        x = 0.02 * torch.polar(torch.ones_like(ph), ph).sum(0)
+        n = 1e-3 * torch.randn((L, 2), generator=gen, device=device, dtype=torch.float64)
+        return (x + torch.complex(n[:, 0], n[:, 1])).to(torch.complex64)
+
+    _, F = eng.master_step(eng.init_state()["master"], block(0))
+    checks = {k["name"]: k for k in check_kernels(eng, params, F, "scan")}
+    del F
+    gs = GraphStep(eng)
+    state = eng.init_state()
+    cc.reset_launches()
+    shapes, finite = set(), True
+    for b in range(CAP_BLOCKS):
+        state, out = gs(state, params, block(b))
+        shapes.add(tuple(out["scan"]["audio"].shape))
+        finite = finite and outputs_finite(out)
+    torch.cuda.synchronize()
+    stats = gs.graph_stats()
+    return {"C": eng.groups["scan"].C, "fs": CAP_FS, "blocks": CAP_BLOCKS,
+            "audio_shapes": sorted(shapes), "finite": finite,
+            "launches": {k: cc.launches[k] for k in ("channelize", "noise_est")},
+            "expected": expected_launches(eng, 0, CAP_BLOCKS), "graphs": graph_summary(stats),
+            "kernels": checks}
+
+
+def spectrum_formats(device) -> dict:
+    """tests/test_spectrum.py's config on the card twice, spectrum-format =
+    byte and = rice, the same blocks into each (a -6 dBFS carrier at 250
+    kHz over -120 dBFS/Hz, made on the card from one seed) and the sweep
+    polled: the last beacon's decoded levels, SPECTRUM_BASE and
+    SPECTRUM_STEP equal between the two."""
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rice import dequantize_bins, rice_decode
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, decode_status, encode_status
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    fs, n0 = 1_024_000, 10 ** (-120 / 10)
+    daemons = {f: Radiod(load_config(SPECTRUM_FMT_CONF.format(fmt=f)), use_network=False,
+                         device=device) for f in ("byte", "rice")}
+    L = daemons["byte"].engine.L
+    gen = torch.Generator(device=device).manual_seed(34)
+    std = float(np.sqrt(n0 * fs / 2.0))
+    for rd in daemons.values():
+        rd.handle_packet(encode_status({T.OUTPUT_SSRC: 240}, cmd=True))
+    for b in range(8):
+        t = (torch.arange(L, dtype=torch.float64, device=device) + b * L) / fs
+        ph = 2 * np.pi * 250e3 * t
+        x = 10 ** (-6 / 20) * torch.polar(torch.ones_like(ph), ph)
+        nz = std * torch.randn((L, 2), generator=gen, device=device, dtype=torch.float64)
+        x = (x + torch.complex(nz[:, 0], nz[:, 1])).to(torch.complex64)
+        for rd in daemons.values():
+            rd.step_block(block=x)
+    out = {}
+    for f, rd in daemons.items():
+        _, fields, _ = decode_status([p for k, p in rd._sent if k == "status"][-1])
+        if f == "byte":
+            lv = np.frombuffer(fields.get(T.BIN_BYTE_DATA, b""), np.uint8).astype(np.int64)
+        else:
+            raw = bytes(fields.get(T.BIN_RICE_DATA, b""))
+            lv = rice_decode(raw, 64) if raw else np.zeros(0, np.int64)
+        base, step = fields.get(T.SPECTRUM_BASE), fields.get(T.SPECTRUM_STEP)
+        db = dequantize_bins(lv, base, step) if lv.size else np.zeros(0)
+        out[f] = {"levels": lv, "base": base, "step": step,
+                  "bytes": len(fields.get(T.BIN_BYTE_DATA if f == "byte" else T.BIN_RICE_DATA,
+                                          b"")),
+                  "peak_db": float(db.max()) if db.size else None,
+                  "dispatch": rd.graph_stats()["current"]["dispatch"]}
+    equal = (out["byte"]["levels"].shape == out["rice"]["levels"].shape == (64,)
+             and bool(np.array_equal(out["byte"]["levels"], out["rice"]["levels"])))
+    return {"levels_equal": equal,
+            "base_step_equal": (out["byte"]["base"], out["byte"]["step"])
+            == (out["rice"]["base"], out["rice"]["step"]),
+            **{f: {k: v for k, v in o.items() if k != "levels"} for f, o in out.items()}}
+
+
+def run_calibration(rt, card: str, device) -> tuple[dict, dict]:
+    """The radio's calibration on the card (calibration_engine,
+    capacity_engine, spectrum_formats); every check fails the run through
+    fail(). Returns (the phase's JSON, per kernel its launches and checks
+    at the phase's shapes)."""
+    t_phase = time.perf_counter()
+    cal = calibration_engine(rt, device)
+    torch.cuda.empty_cache()
+    cap = capacity_engine(rt, device)
+    torch.cuda.empty_cache()
+    spec = spectrum_formats(device)
+    keys = ("max_abs_err", "err_bound", "max_rel_err", "keys_equal", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call", "bytes", "ops", "shape")
+    per_kernel = {}
+    for name in ("channelize", "noise_est"):
+        per_kernel[name] = {
+            "launches": cal["launches"][name] + cap["launches"][name],
+            **{f"at_{g}": {k: cal["kernels"][g][name][k] for k in keys
+                           if k in cal["kernels"][g][name]} for g in ("iq", "stop")},
+            "at_capacity": {k: cap["kernels"][name][k] for k in keys
+                            if k in cap["kernels"][name]}}
+    cal["kernels"] = {g: {n: v[f"at_{g}"] for n, v in per_kernel.items()} for g in ("iq", "stop")}
+    cap["kernels"] = {n: v["at_capacity"] for n, v in per_kernel.items()}
+    out = {"phase": "calibration", "card": card, "config": "bench.py rx888 + calibration groups",
+           "engine": cal, "capacity": cap, "spectrum_formats": spec,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    w = cal["n0_worst"]
+    if abs(w["dev_db"]) > 1.0:
+        fail(f"calibration: N0 of {w['group']}[{w['channel']}] is {w['dev_db']} dB off the scene")
+    if abs(cal["noise_gain"]["rel_err"]) > 0.05:
+        fail(f"calibration: white-noise gain {cal['noise_gain']}")
+    if not cal["stopband_db"] <= -60.0:
+        fail(f"calibration: stopband {cal['stopband_db']} dB, want <= -60")
+    if abs(cal["snr"]["err_db"]) > 0.75 or abs(cal["snr"]["carrier_db"]
+                                               - cal["snr"]["carrier_want_db"]) > 0.1:
+        fail(f"calibration: SNR {cal['snr']}")
+    for what, r in (("engine", cal), ("capacity", cap)):
+        eager = r["graphs"]["eager_blocks"]
+        if not r["finite"] or r["launches"] != r["expected"] \
+                or r["graphs"]["dispatch"] != "cuda graph" \
+                or r["graphs"]["replays"] + sum(eager.values()) != r["blocks"] \
+                or r["graphs"]["replays"] < r["blocks"] - 1 \
+                or any("spectrum warm-up" not in why for why in eager):
+            fail(f"calibration {what}: finite {r['finite']}, launches {r['launches']} want "
+                 f"{r['expected']}, graphs {r['graphs']}")
+    if cap["audio_shapes"] != [(CAP_C, 160)]:
+        fail(f"calibration capacity: audio shapes {cap['audio_shapes']}")
+    if not (spec["levels_equal"] and spec["base_step_equal"]) \
+            or abs(spec["byte"]["peak_db"] - (-6.0)) >= 2.5 \
+            or not 0 < spec["rice"]["bytes"] < 64:
+        fail(f"calibration spectrum formats: {spec}")
+    return out, per_kernel
+
+
+def main(only: str | None = None) -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     if not (ROOT / "ka9q_radio_tpu_torch" / "csrc").is_dir():
@@ -3779,6 +4097,10 @@ def main() -> None:
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": built["seconds"], "built": built["built"],
           "ptxas": ptxas, "torch": torch.__version__, "cuda": torch.version.cuda})
+    if only == "calibration":  # the calibration phase alone
+        _, at_cal = run_calibration(rt, card, device)
+        finish([{"name": n, **v} for n, v in at_cal.items()], card)
+        return
 
     # phase 2: kernels against their plain versions at the rx888 shapes
     t0 = time.perf_counter()
@@ -4084,6 +4406,18 @@ def main() -> None:
         kern["at_control"] = at_ctl[kern["name"]]
     torch.cuda.empty_cache()
 
+    # phase 22: the radio's calibration on the card: N0, white-noise gain,
+    # stopband and SNR at the rx888 master, 2,000 FM channels as graph
+    # replays, the byte and Rice spectrum formats
+    _, at_cal = run_calibration(rt, card, device)
+    for kern in kernels[:2]:
+        kern["calibration_launches"] = at_cal[kern["name"]]["launches"]
+        kern["at_calibration"] = at_cal[kern["name"]]
+    finish(kernels, card)
+
+
+def finish(kernels: list, card: str) -> None:
+    """The run's last lines: the kernels line, the card, the result."""
     if "jax" in sys.modules or any(n == "ka9q_radio_tpu" or n.startswith("ka9q_radio_tpu.")
                                    for n in sys.modules):
         fail("the port pulled in jax or the JAX package")
@@ -4106,5 +4440,7 @@ if __name__ == "__main__":
         torch.set_num_threads(2)
         emit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                               torch.device("cuda", 0), FS))
+    elif sys.argv[1:2] == ["--calibration"]:
+        main(only="calibration")
     else:
         main()

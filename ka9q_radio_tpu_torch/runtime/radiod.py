@@ -2054,6 +2054,14 @@ class Radiod:
                 self._send_beacon(self.encode_channel_status(ch), ch)
 
     def _record_block_time(self, dt: float):
+        """One block's wall time into the min/avg/max stats and the ring.
+        The average is an EMA (alpha 0.01) seeded with the first block's
+        time, so that t_min <= t_avg <= t_max holds from the first block on
+        (an EMA from 0 sits below every block's time for hundreds of
+        blocks)."""
+        self.t_avg = dt if self._t_n == 0 else self.t_avg + 0.01 * (dt - self.t_avg)
+        self.t_min = min(self.t_min, dt)
+        self.t_max = max(self.t_max, dt)
         self._t_ring[self._t_n % self._t_ring.size] = dt
         self._t_n += 1
 
@@ -2232,19 +2240,11 @@ class Radiod:
             for d in range(D):
                 self.blocks += 1
                 ret = self._finish_block(self._slice_out(host_out, d))
-            _dt = time.monotonic() - _t0
-            self.t_avg += 0.01 * (_dt / D - self.t_avg)
-            self.t_min = min(self.t_min, _dt / D)
-            self.t_max = max(self.t_max, _dt / D)
-            self._record_block_time(_dt / D)
+            self._record_block_time((time.monotonic() - _t0) / D)
             return ret
         self.blocks += 1
         ret = self._finish_block(host_out)
-        _dt = time.monotonic() - _t0
-        self.t_avg += 0.01 * (_dt - self.t_avg)
-        self.t_min = min(self.t_min, _dt)
-        self.t_max = max(self.t_max, _dt)
-        self._record_block_time(_dt)
+        self._record_block_time(time.monotonic() - _t0)
         return ret
 
     def _finish_block(self, host_out):
