@@ -117,6 +117,22 @@ channels as graph replays; kernels A and B at those shapes against their
 plain versions; and two daemons on the card in spectrum-format = byte and =
 rice polled on one sweep, their levels equal. `python3 chip_smoke.py
 --calibration` builds the kernels and runs this phase alone.
+Last, the `examples` phase, the shipped deployments as users start them:
+examples/radiod@siggen.conf (its own sig_gen: the AM tone), @aviation.conf
+(a cf32le capture: an AM carrier on the tower's 118.3 MHz that stops
+halfway; amsq opens there only, closes within squelch-tail + 3 blocks, the
+prealloc = amsq pool silent), @hf-generic.conf (an s16be capture: WSPR,
+FT8 and 10m-FM tones each on its own channel and its section's own data
+stream, W1AW disabled), @spectrum.conf (a sig_gen: the byte-format survey
+on the carrier's bin and the scene's noise density, neither kernel
+launched) and @fm.conf (a cs16le capture: stereo separation, the RDS PI
+code from the companion stream, a mono station), each through Radiod at
+its full rate and channel set beside a second daemon on the eager step
+(packets byte for byte), A and B by the counters and against their plain
+versions at every group's shape; then the four RTP-fed ones fed by
+ingest_blast at their own rate. The captures are written by numpy from a
+seed into a temporary directory. `python3 chip_smoke.py --examples` runs
+this phase alone.
 
 Kernel times come from CUDA events around a CUDA graph of n calls (a call
 that cannot be captured: n back-to-back calls, named in its phase's line),
@@ -627,11 +643,15 @@ def pick_on_grid(freqs, offset: float, hz_per_bin: float, lo: int, hi: int, avoi
     return cand[i], int(np.round(x[i]))
 
 
-def peak_hz(audio, rate: float) -> float:
+def peak_hz(audio, rate: float, above: float = 0.0) -> float:
+    """The audio's strongest frequency (Hann window, 8x zero padding),
+    above `above` Hz (an AM envelope's DC term is not its tone)."""
     a = np.asarray(audio, np.float64)
     n = 8 * a.size
     spec = np.abs(np.fft.rfft(a * np.hanning(a.size), n))
-    return float(np.fft.rfftfreq(n, 1.0 / rate)[int(np.argmax(spec))])
+    f = np.fft.rfftfreq(n, 1.0 / rate)
+    spec[f < above] = 0.0
+    return float(f[int(np.argmax(spec))])
 
 
 def run_scene(eng, params, device, seed: int = 1) -> dict:
@@ -1943,10 +1963,11 @@ STEREO_BLOCKS = 24
 STEREO_TOL = 1e-4  # the card's decode against the CPU path's, of the block's peak
 
 
-def stereo_composite(n: int) -> np.ndarray:
-    """tests/test_clients2.py's composite at 384 kHz: a 1 kHz tone on L only
-    (L+R and L-R on 38 kHz), the 19 kHz pilot."""
-    t = np.arange(n) / STEREO_FS
+def stereo_composite(n: int, fs: float = STEREO_FS, start: int = 0) -> np.ndarray:
+    """tests/test_clients2.py's composite at 384 kHz (or fs, from sample
+    `start`): a 1 kHz tone on L only (L+R and L-R on 38 kHz), the 19 kHz
+    pilot."""
+    t = (np.arange(n) + start) / fs
     left = np.cos(2 * np.pi * 1000.0 * t)
     comp = (0.45 * left + 0.1 * np.sin(2 * np.pi * 19_000.0 * t)
             + 0.45 * left * np.sin(2 * np.pi * 38_000.0 * t)) * 0.9
@@ -2714,10 +2735,11 @@ def tool_module(name: str):
 
 
 def ingest_config(conf: Path, section: str, port: int, dport: int, sport: int,
-                  status: str, data: str) -> tuple[str, list[str]]:
+                  status: str, data: str) -> tuple[str, list[str], dict]:
     """`conf` with its [section] RTP stream pointed at 127.0.0.1:port (fed
-    by ingest_blast), its data and status on local ports and no SAP or
-    mDNS: (config text, the changes for `reduced`)."""
+    by ingest_blast), its data and status on local ports (a section's own
+    `data =` stream on a port of its own) and no SAP or mDNS: (config text,
+    the changes for `reduced`, {each section's stream: its port})."""
     import re
 
     text = conf.read_text()
@@ -2728,12 +2750,20 @@ def ingest_config(conf: Path, section: str, port: int, dport: int, sport: int,
     text = text[:m.start(2)] + f"127.0.0.1:{port}" + text[m.end(2):]
     text = text.replace(f"status = {status}", f"status = 127.0.0.1:{sport}")
     text = text.replace(f"data = {data}", f"data = 127.0.0.1:{dport}")
+    streams: dict[str, int] = {}
+
+    def own_port(m):
+        streams[m.group(2)] = _free_port()
+        return f"{m.group(1)}127.0.0.1:{streams[m.group(2)]}"
+
+    text = re.sub(r"(?m)^(data\s*=\s*)(?!127\.0\.0\.1:)(\S+)", own_port, text)
     text = text.replace("[global]\n", "[global]\nsap = no\nadvertise = no\n", 1)
     return text, [
         f"[{section}] stream: {m.group(2)} -> 127.0.0.1:{port}, fed by ingest_blast (the port's "
         "native paced sender: the s16be ramp ((frame & 0x3fff) - 0x2000) on every sample)",
         f"data, status: {data}, {status} -> 127.0.0.1:{dport}, 127.0.0.1:{sport}",
-        "sap = no, advertise = no: no SAP or mDNS announcements (the run has no network)"]
+        *(f"data: {n} -> 127.0.0.1:{p}" for n, p in streams.items()),
+        "sap = no, advertise = no: no SAP or mDNS announcements (the run has no network)"], streams
 
 
 def expected_launches(eng, j0: int, j1: int) -> dict:
@@ -2770,6 +2800,23 @@ def leaves_finite(tree) -> tuple[bool, int]:
     return ok, n
 
 
+def step_outputs_finite(eng, out) -> tuple[bool, int]:
+    """leaves_finite of a step's outputs, less the `snr` readout of linear
+    channels with neither SNR squelch nor a PLL, which models/linear.py
+    sets to +inf by design (the status then leaves PLL_SNR out)."""
+    trimmed = {}
+    for g, o in out.items():
+        grp = eng.groups.get(g)
+        hd = grp.host.get("demod", {}) if grp is not None else {}
+        if "snr_squelch_enable" not in hd or grp.spec.enable_pll or "snr" not in o["info"]:
+            trimmed[g] = o
+            continue
+        keep = torch.as_tensor(np.asarray(hd["snr_squelch_enable"], bool),
+                               device=o["info"]["snr"].device)
+        trimmed[g] = {**o, "info": {**o["info"], "snr": o["info"]["snr"][..., keep]}}
+    return leaves_finite(trimmed)
+
+
 def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data: str,
                   fs: float, width: int, fpp: int, warm: int, dispatches: int, trace: bool,
                   tool) -> tuple[dict, dict]:
@@ -2793,11 +2840,13 @@ def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data
     from ka9q_radio_tpu_torch.runtime.radiod import Radiod
 
     port, dport, sport = _free_port(), _free_port(), _free_port()
-    text, reduced = ingest_config(conf, section, port, dport, sport, status, data)
-    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
-    rx.bind(("127.0.0.1", dport))
-    rx.setblocking(False)
+    text, reduced, streams = ingest_config(conf, section, port, dport, sport, status, data)
+    rxs = {}
+    for p in (dport, *streams.values()):
+        rxs[p] = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        rxs[p].setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+        rxs[p].bind(("127.0.0.1", p))
+        rxs[p].setblocking(False)
     t0 = time.perf_counter()
     rd = Radiod(load_config(text), use_network=True, data_port=dport, status_port=sport,
                 device=device)
@@ -2820,11 +2869,17 @@ def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data
 
     ssrcs = {c.ssrc for c in rd.chans.values()}
     heard: dict[int, int] = {}
+    heard_on: dict[int, set] = {}  # ssrc -> the ports it arrived on
+    # each channel's stream: its section's own `data =`, else the global one
+    own = {c.ssrc: (int(str(eng.groups[c.group].spec.data).rsplit(":", 1)[1])
+                    if eng.groups[c.group].spec.data else dport) for c in rd.chans.values()}
 
     def drain():
-        while select.select([rx], [], [], 0)[0]:
-            h, _ = RtpHeader.unpack(rx.recv(65536))
-            heard[h.ssrc] = heard.get(h.ssrc, 0) + 1
+        for p, rx in rxs.items():
+            while select.select([rx], [], [], 0)[0]:
+                h, _ = RtpHeader.unpack(rx.recv(65536))
+                heard[h.ssrc] = heard.get(h.ssrc, 0) + 1
+                heard_on.setdefault(h.ssrc, set()).add(p)
 
     kept: dict = {}
     to_device, step = rd._to_device, rd.step
@@ -2838,7 +2893,7 @@ def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data
     def keep_out(state, params, block):
         state, out = step(state, params, block)
         if "finite" not in kept:
-            kept["finite"] = leaves_finite(out)
+            kept["finite"] = step_outputs_finite(eng, out)
         return state, out
 
     th = threading.Thread(target=tx, daemon=True)
@@ -2888,7 +2943,8 @@ def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data
         fe.close()
         for edge_, _ in rd.edges.values():
             edge_.close()
-        rx.close()
+        for rx in rxs.values():
+            rx.close()
     # the first timed dispatch's block on the card against the ramp, bit for bit
     host_blk = kept["block"].cpu()
     frames = (torch.view_as_real(host_blk) if host_blk.is_complex() else host_blk[..., None])
@@ -2920,6 +2976,8 @@ def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data
            "finite": finite, "finite_values_checked": n_finite,
            "rtp_packets": sum(heard.values()), "rtp_ssrcs": len(heard),
            "rtp_foreign_ssrcs": sorted(set(heard) - ssrcs)[:10],
+           "rtp_streams": len(rxs),
+           "rtp_off_stream": sorted(s for s, ps in heard_on.items() if ps != {own.get(s)})[:10],
            "open_last_timed_block": len(opened),
            "open_not_heard": len(opened - heard_timed),
            "egress_overflows_timed": overflowed, **(busy or {})}
@@ -2937,6 +2995,8 @@ def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data
         fail(f"{what}: RTP audio from {len(heard)} SSRCs (foreign "
              f"{out['rtp_foreign_ssrcs']}); {len(opened)} channels open at the last timed "
              f"block, {len(opened - heard_timed)} of them not heard, {overflowed} overflows")
+    if out["rtp_off_stream"]:
+        fail(f"{what}: RTP of SSRCs {out['rtp_off_stream']} off their sections' own streams")
     if not acc["accounting_ok"]:
         fail(f"{what}: frames do not add up: {acc}")
     if not out["native_reader"]:
@@ -2944,8 +3004,8 @@ def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data
     # A and B against their plain versions on the master spectrum of the
     # ramp's first block, at the daemon's shapes
     _, F = master_fft(eng.master, eng.init_state()["master"], kept["block"].reshape(-1, L)[0])
-    group = next(n for n, g in eng.groups.items() if g.tiled and g.tile_E is not None)
-    at = {k["name"]: k for k in check_kernels(eng, rd.params, F, group)}
+    group = next((n for n, g in eng.groups.items() if g.tiled and g.tile_E is not None), None)
+    at = {k["name"]: k for k in check_kernels(eng, rd.params, F, group)} if group else {}
     return out, {name: {"group": group, "C": eng.groups[group].C, "launches": launches[name],
                         "in_daemon_ms": (busy or {}).get("kernel_in_daemon_ms", {}).get(name),
                         **{x: at[name][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -4068,6 +4128,692 @@ def run_calibration(rt, card: str, device) -> tuple[dict, dict]:
     return out, per_kernel
 
 
+# ------------------------------------------ the shipped example deployments
+EX_SEED = 41  # every scene's numpy generator
+EX_N0 = 1e-14  # the file scenes' noise density, power/Hz (-140 dBFS/Hz)
+EX_TONE = 1000.0  # Hz: the tone each scene's known answer listens for
+EX_WARM = 2  # blocks of the filters' turn-on, left out of every known answer
+# aviation: an AM carrier with EX_TONE on the tower's 118.300 MHz that
+# stops at block EX_BLOCKS["aviation"] // 2, over complex noise
+EX_AV_FREQ, EX_AV_AMP, EX_AV_DEPTH = 118_300_000.0, 0.01, 0.5
+# hf-generic: USB tones 1,500 Hz above the 20 m WSPR dial and 1,000 Hz above
+# the 20 m FT8 dial, an NBFM tone on 29.62 MHz (10m-FM), unmodulated carriers
+# on the other 10m-FM channels, a CW carrier on W1AW's disabled 14.0475 MHz
+EX_HF_STD = 1e-4  # real noise, per sample (N0 = 2 std^2 / fs)
+EX_HF_AMP = 5e-4  # each carrier (the wspr preset: gain 60 dB, AGC off)
+EX_HF_USB = {"wspr": (14_095_600.0, 1500.0), "ft8": (14_074_000.0, 1000.0)}
+EX_HF_FM, EX_HF_FM_DEV = 29_620_000.0, 2500.0
+EX_HF_CARRIERS = (29_640_000.0, 29_660_000.0, 29_680_000.0)
+EX_HF_W1AW = (3_581_500.0, 14_047_500.0, 21_067_500.0, 28_067_500.0)  # its own dials
+EX_HF_CW = 14_047_500.0 + 700.0
+# fm: jazz (88.3 MHz) the stereo composite + RDS, npr (89.5 MHz, channels =
+# 1) a mono tone, unmodulated carriers on classical and news
+EX_FM_AMP, EX_FM_DEV = 0.1, 75_000.0
+EX_FM_PI, EX_FM_PS = 0x72D1, "KA9QJAZZ"
+EX_FM_RDS = 0.04  # the RDS subcarrier's share of the composite: 3 kHz of deviation
+EX_FM_RDS_UP = 16  # rds_modulate runs at fs / 16 (1.92 Msps), held 16 samples
+EX_FM_NPR_TONE = 600.0
+# spectrum: a carrier inside survey channel 14.5 MHz over noise of density
+# EX_SPEC_N0_DB, both from the sig_gen
+EX_SPEC_CARRIER, EX_SPEC_AMP_DB, EX_SPEC_N0_DB = 14_623_400.0, -40.0, -130.0
+EX_SPEC_CHANNEL = 14_500_000.0
+EXAMPLE_BLOCKS = {"siggen": 16, "aviation": 32, "hf-generic": 24, "spectrum": 12, "fm": 48}
+EXAMPLE_FORMATS = {"aviation": "cf32le", "hf-generic": "s16be", "fm": "cs16le"}
+# the RTP-fed examples through ingest_daemon: (the [hardware] section,
+# status, data, fs, frames' width)
+EXAMPLE_FEEDS = {
+    "aviation": ("airband-feed", "aviation.local", "aviation-pcm.local", 20_480_000.0, 2),
+    "hf-generic": ("rx888-feed", "hf.local", "hf-pcm.local", 64_800_000.0, 1),
+    "spectrum": ("hf-feed", "survey.local", "survey-pcm.local", 64_800_000.0, 1),
+    "fm": ("vhf-feed", "fm.local", "fm-pcm.local", 30_720_000.0, 2),
+}
+EX_INGEST_WARM, EX_INGEST_BLOCKS = 4, 25
+
+
+def example_text(name: str, front_end: "list[str] | None" = None) -> str:
+    """examples/radiod@<name>.conf as shipped, its `device = rtp` front end
+    replaced by the lines of `front_end` (the section's rate, centre and
+    other keys kept, the rtp-only ones dropped); every channel, group and
+    option as it is."""
+    import re
+
+    text = (ROOT / "examples" / f"radiod@{name}.conf").read_text()
+    if front_end is None:
+        return text
+    out, n = re.subn(r"(?m)^device\s*=\s*rtp\b.*$", "\n".join(front_end), text)
+    if n != 1:
+        fail(f"examples {name}: no `device = rtp` front end to replace")
+    return re.sub(r"(?m)^(stream|encoding)\s*=.*$", "", out)
+
+
+def carriers(fs: float, L: int, rows: list) -> "callable":
+    """Carriers whose modulation makes whole cycles in a block (every tone
+    here is a multiple of 50 Hz, so it repeats each 20 ms block): rows of
+    (RF offset from the centre in Hz, amplitude, modulation [L] complex or
+    None). Returns b -> block b's complex sum, each carrier's [L] ramp made
+    once and turned by its phase at sample b L (exact in float64)."""
+    n = np.arange(L, dtype=np.float64)
+    f = np.array([r[0] for r in rows])
+    M = np.stack([a * np.exp(2j * np.pi * np.remainder(fk / fs * n, 1.0))
+                  * (1.0 if m is None else m) for fk, a, m in rows])
+
+    def block(b: int) -> np.ndarray:
+        return np.exp(2j * np.pi * np.remainder(f / fs * (b * L), 1.0)) @ M
+
+    return block
+
+
+def aviation_scene(L: int, fs: float, center: float, n: int, seed: int = EX_SEED):
+    """n blocks of complex noise of density EX_N0, and for the first n // 2
+    an AM carrier (depth EX_AV_DEPTH, EX_TONE) on the tower's EX_AV_FREQ."""
+    rng = np.random.default_rng(seed)
+    std = float(np.sqrt(EX_N0 * fs / 2.0))
+    k = np.arange(L, dtype=np.float64)
+    env = 1.0 + EX_AV_DEPTH * np.cos(2 * np.pi * (EX_TONE / fs) * k)
+    am = carriers(fs, L, [(EX_AV_FREQ - center, EX_AV_AMP, env)])
+    for b in range(n):
+        x = std * (rng.standard_normal(L) + 1j * rng.standard_normal(L))
+        yield x + am(b) if b < n // 2 else x
+
+
+def hf_scene(L: int, fs: float, n: int, seed: int = EX_SEED):
+    """n real blocks: EX_HF_USB's tones, the NBFM tone on EX_HF_FM (EX_TONE
+    at EX_HF_FM_DEV), the other 10m-FM carriers and W1AW's CW carrier, each
+    a cosine of amplitude EX_HF_AMP, over noise of EX_HF_STD a sample."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(L, dtype=np.float64)
+    fm = np.exp(1j * EX_HF_FM_DEV / EX_TONE * np.sin(2 * np.pi * EX_TONE / fs * k))
+    tones = carriers(fs, L, [(dial + off, EX_HF_AMP, None) for dial, off in EX_HF_USB.values()]
+                     + [(f, EX_HF_AMP, None) for f in (*EX_HF_CARRIERS, EX_HF_CW)]
+                     + [(EX_HF_FM, EX_HF_AMP, fm)])
+    for b in range(n):
+        yield EX_HF_STD * rng.standard_normal(L) + tones(b).real
+
+
+def rds_groups(n: int) -> list:
+    """n RDS 0A groups of station EX_FM_PI carrying the PS name EX_FM_PS, a
+    segment each (tests/test_rds.py's layout)."""
+    out = []
+    for i in range(n):
+        seg = i % 4
+        b = (0 << 12) | (0 << 11) | (5 << 5) | seg
+        out.append((EX_FM_PI, b, 0xE0CD, (ord(EX_FM_PS[2 * seg]) << 8) | ord(EX_FM_PS[2 * seg + 1])))
+    return out
+
+
+def fm_scene(L: int, fs: float, center: float, stations: dict, n: int, seed: int = EX_SEED):
+    """n blocks of the FM band: `stations` (name -> RF) at EX_FM_AMP each;
+    jazz carries stereo_composite (1 kHz on L, the 19 kHz pilot) plus RDS
+    (rds_modulate of rds_groups, on 57 kHz = 3 x the pilot's phase), npr a
+    mono EX_FM_NPR_TONE, the rest no modulation; EX_FM_DEV peak deviation,
+    the FM phase the running sum of the composite; complex noise of EX_N0.
+    The tones' part of the phase repeats each block; RDS's is summed on."""
+    from ka9q_radio_tpu_torch.daemons.rds import RDS_BAUD, rds_modulate
+
+    rng = np.random.default_rng(seed)
+    std = float(np.sqrt(EX_N0 * fs / 2.0))
+    k = np.arange(L, dtype=np.float64)
+    rad = 2 * np.pi * EX_FM_DEV / fs  # radians a sample at full deviation
+    sps = fs / EX_FM_RDS_UP / RDS_BAUD
+    ngroups = int(np.ceil(n * L / EX_FM_RDS_UP / (104 * sps))) + 1
+    rds = np.repeat(rds_modulate(rds_groups(ngroups), fs=fs / EX_FM_RDS_UP), EX_FM_RDS_UP)
+    sub57 = EX_FM_RDS * np.sin(3 * 2 * np.pi * 19_000.0 / fs * k)
+    mods = {"jazz": np.cumsum(rad * stereo_composite(L, fs).astype(np.float64)),
+            "npr": np.cumsum(rad * 0.9 * np.cos(2 * np.pi * EX_FM_NPR_TONE / fs * k))}
+    rest = carriers(fs, L, [(rf - center, EX_FM_AMP, np.exp(1j * mods[s]) if s in mods else None)
+                            for s, rf in stations.items() if s != "jazz"])
+    jazz = carriers(fs, L, [(stations["jazz"] - center, EX_FM_AMP, np.exp(1j * mods["jazz"]))])
+    rds_phase = 0.0
+    for b in range(n):
+        dev = rds_phase + np.cumsum(rad * rds[b * L:(b + 1) * L] * sub57)
+        rds_phase = float(dev[-1])
+        x = std * (rng.standard_normal(L) + 1j * rng.standard_normal(L))
+        yield x + rest(b) + jazz(b) * np.exp(1j * dev)
+
+
+def write_capture(path: Path, fmt: str, blocks) -> int:
+    """numpy blocks to a raw capture in `fmt`, as runtime/frontends.py
+    FileSource reads it back (s16be real; cs16le and cf32le complex, I/Q
+    interleaved; s16 at 32,767 to full scale). Returns the bytes written."""
+    nbytes = 0
+    with open(path, "wb") as fh:
+        for x in blocks:
+            if np.iscomplexobj(x):
+                v = np.empty(2 * x.size)
+                v[0::2], v[1::2] = x.real, x.imag
+            else:
+                v = x
+            if fmt == "cf32le":
+                y = v.astype("<f4")
+            else:
+                y = np.clip(np.rint(v * 32767.0), -32767, 32767).astype(
+                    ">i2" if fmt == "s16be" else "<i2")
+            fh.write(y.tobytes())
+            nbytes += y.nbytes
+    return nbytes
+
+
+def example_capture(name: str, cfg, out_dir: Path, nblocks: int) -> "Path | None":
+    """The file scene of `name` (None for the sig_gen ones), written under
+    out_dir at the config's rate and centre, nblocks blocks of its L."""
+    if name not in EXAMPLE_FORMATS:
+        return None
+    fs, L = cfg.samprate, int(round(cfg.samprate * cfg.blocktime))
+    center = float(getattr(cfg, "center", 0.0))
+    if name == "aviation":
+        blocks = aviation_scene(L, fs, center, nblocks)
+    elif name == "hf-generic":
+        blocks = hf_scene(L, fs, nblocks)
+    else:
+        stations = {g.name: g.channels[0].freq for g in cfg.groups}
+        blocks = fm_scene(L, fs, center, stations, nblocks)
+    path = out_dir / f"{name}.{EXAMPLE_FORMATS[name]}"
+    write_capture(path, EXAMPLE_FORMATS[name], blocks)
+    return path
+
+
+def example_config(name: str, out_dir: Path, nblocks: int) -> tuple[str, list[str]]:
+    """(config text, `reduced`) of `name`'s scene: the shipped text with its
+    rtp front end replaced by a file capture in the example's own format
+    (written first) or, for the spectrum survey, a sig_gen; siggen keeps
+    its own sig_gen."""
+    from ka9q_radio_tpu_torch.config import load_config
+
+    if name == "siggen":
+        return example_text(name), []
+    shipped = load_config(example_text(name, ["device = sig_gen"]))  # its rate and centre
+    capture = example_capture(name, shipped, out_dir, nblocks)
+    if capture is not None:
+        fe = ["device = file", f"path = {capture}", f"format = {EXAMPLE_FORMATS[name]}"]
+        what = (f"a {EXAMPLE_FORMATS[name]} capture of {nblocks} blocks written by numpy from "
+                f"seed {EX_SEED}")
+    else:  # the spectrum survey: one carrier over noise of a known density
+        fe = ["device = sig_gen", f"carrier = {EX_SPEC_CARRIER}", f"amplitude = {EX_SPEC_AMP_DB}",
+              f"n0 = {EX_SPEC_N0_DB}"]
+        what = "a sig_gen"
+    return example_text(name, fe), [f"the rtp front end -> {what}, at the example's rate and "
+                                    "centre: " + "; ".join(fe)]
+
+
+def rtp_audio(rd, ssrc: int, start: int = 0, stop: "int | None" = None):
+    """The audio of ssrc's data packets in rd._sent[start:stop]: (samples
+    [n, channels] of the packets' last channel count, its rate, the channel
+    count of each packet)."""
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader, decode_samples
+
+    chunks, counts, rate = [], [], 0
+    for kind, pkt in rd._sent[start:stop]:
+        if kind != "data":
+            continue
+        h, payload = RtpHeader.unpack(pkt)
+        if h.ssrc != ssrc:
+            continue
+        rate, nch, enc = rd.registry.table[h.type]
+        counts.append(nch)
+        chunks.append(decode_samples(payload, enc).reshape(-1, nch))
+    if not chunks:
+        return np.zeros((0, 1), np.float32), rate, counts
+    last = [c for c in chunks if c.shape[1] == counts[-1]]
+    return np.concatenate(last), rate, counts
+
+
+def tone_prominence_db(audio: np.ndarray, f0: float, rate: float) -> float:
+    """dB of the tone near f0 (tone_amp_db) over the audio's median bin
+    amplitude (the same window and scale): 30 dB and more for a clean tone,
+    a few dB for noise alone."""
+    a = np.asarray(audio, np.float64)
+    w = np.hanning(a.size)
+    X = np.abs(np.fft.rfft(a * w))
+    ref = float(20 * np.log10(2.0 * 3.0 * np.median(X) / np.sqrt(a.size * np.sum(w ** 2))
+                              + 1e-15))
+    return tone_amp_db(a, f0, rate) - ref
+
+
+def drive_example(text: str, device, nblocks: int, keep: int,
+                  polls: "dict[int, list[int]] | None" = None) -> dict:
+    """`text` through two daemons as radiod-torch builds them, one
+    dispatching as the daemon does (GraphStep: CUDA graph replays) and one
+    eagerly, each from its own front end (the same capture, or sig_gen from
+    the same seed), nblocks blocks each; `polls` {block: [ssrc]}: bare polls
+    sent to both before that block. Returns the daemons, the graph daemon's
+    packet marks a block, its launches and the eager one's, the block it
+    read at `keep` (a copy) and the data packets' groups."""
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, encode_status
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    t0 = time.perf_counter()
+    rg = Radiod(load_config(text), use_network=False, device=device)
+    init_s = time.perf_counter() - t0
+    re_ = eager_radiod(Radiod)(load_config(text), use_network=False, device=device)
+    daemons = {"graph": rg, "eager": re_}
+    launches = {m: dict.fromkeys(("channelize", "noise_est"), 0) for m in daemons}
+    kept: dict = {}
+    to_device, send_data = rg._to_device, rg._send_data
+    groups_of: dict[int, set] = {}
+
+    def keep_block(block):
+        t = to_device(block)
+        if rg.blocks == keep:
+            kept["block"] = t.clone()
+        return t
+
+    def record_group(pkt, sock=None, group=None):
+        groups_of.setdefault(RtpHeader.unpack(pkt)[0].ssrc, set()).add(group)
+        send_data(pkt, sock, group)
+
+    rg._to_device, rg._send_data = keep_block, record_group
+    marks, walls = [0], {m: 0.0 for m in daemons}
+    for b in range(nblocks):
+        for m, rd in daemons.items():
+            for ssrc in (polls or {}).get(b, []):
+                rd.handle_packet(encode_status({T.OUTPUT_SSRC: ssrc}, cmd=True))
+            before = {k: cc.launches[k] for k in launches[m]}
+            t = time.perf_counter()
+            rd.step_block()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            walls[m] += time.perf_counter() - t
+            for k in before:
+                launches[m][k] += cc.launches[k] - before[k]
+            if b == EX_WARM - 1:
+                rd._t_n = 0  # block times from the first block after the turn-on
+        marks.append(len(rg._sent))
+    rg._to_device, rg._send_data = to_device, send_data
+    p50, p99 = rg.latency_percentiles()
+    ep50, ep99 = re_.latency_percentiles()
+    return {"graph": rg, "eager": re_, "marks": marks, "launches": launches, "kept": kept,
+            "groups_of": groups_of, "init_s": init_s,
+            "block_ms": {"p50": p50 * 1e3, "p99": p99 * 1e3,
+                         "eager_p50": ep50 * 1e3, "eager_p99": ep99 * 1e3,
+                         "graph_wall_ms_a_block": walls["graph"] * 1e3 / nblocks,
+                         "eager_wall_ms_a_block": walls["eager"] * 1e3 / nblocks}}
+
+
+def example_wire(name: str, run: dict) -> dict:
+    """The graph daemon's packets against the eager daemon's (same_wire),
+    every data packet byte for byte; its launches against the eager one's
+    and expected_launches; its dispatches as graph replays."""
+    rg, re_ = run["graph"], run["eager"]
+    wire = same_wire(re_._sent, rg._sent, rg.registry)
+    data_equal = sum(a == b for (k, a), (_, b) in zip(re_._sent, rg._sent) if k == "data")
+    blocks = len(run["marks"]) - 1
+    want = expected_launches(rg.engine, 0, blocks)
+    stats = rg.graph_stats()["current"]
+    out = {"wire": {**wire, "data_bytes_equal": data_equal}, "launches": run["launches"]["graph"],
+           "eager_launches": run["launches"]["eager"], "want_launches": want,
+           "graphs": daemon_graphs(rg)}
+    if wire["differ"] or data_equal != wire["data"]:
+        fail(f"examples {name}: the graph daemon's packets differ from the eager daemon's: "
+             f"{wire['differ'][:6]}, data byte for byte {data_equal} of {wire['data']}")
+    if run["launches"]["graph"] != want or run["launches"]["eager"] != want:
+        fail(f"examples {name}: launches graph {run['launches']['graph']}, eager "
+             f"{run['launches']['eager']}, want {want}")
+    eager_why = stats["eager_blocks"]
+    if stats["dispatch"] != "cuda graph" or stats["replays"] + sum(eager_why.values()) != blocks \
+            or any("spectrum warm-up" not in why for why in eager_why):
+        fail(f"examples {name}: graph daemon dispatch {stats['dispatch']}, replays "
+             f"{stats['replays']}, eager blocks {eager_why} over {blocks} blocks")
+    return out
+
+
+def example_kernels(name: str, run: dict) -> dict:
+    """A and B against their plain versions at each of the example's
+    groups' shapes (check_kernels), on the master spectrum of the block the
+    graph daemon read at `keep`; spectrum groups launch neither."""
+    from ka9q_radio_tpu_torch.ops.filterbank import master_fft
+
+    rd = run["graph"]
+    eng = rd.engine
+    if "block" not in run["kept"]:
+        fail(f"examples {name}: no block kept for the kernels")
+    _, F = master_fft(eng.master, eng.init_state()["master"], run["kept"]["block"])
+    return {g: {k["name"]: k for k in check_kernels(eng, rd.params, F, g)}
+            for g, grp in eng.groups.items() if grp.spec.demod != "spectrum"}
+
+
+def check_siggen_example(run: dict) -> dict:
+    """test_examples.py's test_siggen_example_end_to_end on the card: the AM
+    channel (ssrc 500) hears the generator's tone above 100 Hz (the JAX
+    test's cut of the envelope's DC term), within 10 Hz."""
+    rg = run["graph"]
+    audio, rate, _ = rtp_audio(rg, 500, run["marks"][EX_WARM])
+    pk = peak_hz(audio[:, 0], rate, above=100.0) if audio.size else None
+    out = {"am_peak_hz": pk, "am_samples": int(audio.shape[0]), "rate": rate}
+    if pk is None or abs(pk - EX_TONE) > 10.0:
+        fail(f"examples siggen: the AM channel peaks at {pk} Hz, want {EX_TONE}")
+    return out
+
+
+def check_aviation_example(run: dict) -> dict:
+    """The tower's 118.300 MHz opens on its carrier and hears the tone; the
+    other amsq channels send nothing after the turn-on; the guard (am, no
+    squelch, as configured) sends its noise without the tone; the tower's
+    channel sends no audio after the block the carrier ends in (the
+    overlap carries its last samples into block nblocks // 2) and its last
+    packet within squelch_tail + 3 blocks of that block (models/linear.py:
+    the sequencer counts down from squelch_tail + 4 a closed block, sending
+    zeros while above 0); the dynamic pool that prealloc = amsq built sends
+    nothing."""
+    from ka9q_radio_tpu_torch.net.rtp import RtpHeader
+
+    rg, marks = run["graph"], run["marks"]
+    nblocks = len(marks) - 1
+    stop = nblocks // 2
+    static = {c.ssrc: c for c in rg.chans.values()}
+
+    def blocks_sending(ssrc, nonzero=False):
+        out = []
+        for b in range(nblocks):
+            audio, _, _ = rtp_audio(rg, ssrc, marks[b], marks[b + 1])
+            if audio.shape[0] and (not nonzero or np.abs(audio).max() > 0):
+                out.append(b)
+        return out
+
+    tower = 118_300
+    sends = blocks_sending(tower)
+    audible = blocks_sending(tower, nonzero=True)
+    audio, rate, _ = rtp_audio(rg, tower, marks[EX_WARM], marks[stop])
+    pk = peak_hz(audio[:, 0], rate) if audio.size else None
+    tail = int(rg.engine.groups["tower"].host["demod"]["squelch_tail"][0])
+    others = {s: blocks_sending(s) for s, c in static.items()
+              if s != tower and c.group != "guard"}
+    guard, grate, _ = rtp_audio(rg, 121_500, marks[EX_WARM], marks[stop])
+    g = rg.engine.groups["tower"]
+    pool = sorted(rg.free_slots.get("tower", []))
+    foreign = sorted({RtpHeader.unpack(p)[0].ssrc for k, p in rg._sent if k == "data"}
+                     - set(static))
+    out = {"tower_peak_hz": pk, "tower_blocks_sending": sends, "tower_blocks_audible": audible,
+           "carrier_blocks": stop, "squelch_tail": tail,
+           "others_blocks_sending": {str(s): v for s, v in others.items()},
+           "guard_packets": sum(1 for k, p in rg._sent if k == "data"
+                                and RtpHeader.unpack(p)[0].ssrc == 121_500),
+           "guard_tone_prominence_db": tone_prominence_db(guard[:, 0], EX_TONE, grate)
+           if guard.size else None,
+           "tower_tone_prominence_db": tone_prominence_db(audio[:, 0], EX_TONE, rate)
+           if audio.size else None,
+           "groups": {n: gg.C for n, gg in rg.engine.groups.items()},
+           "pool_free_slots": pool, "pool_C": g.C, "foreign_ssrcs": foreign}
+    if pk is None or abs(pk - EX_TONE) > 10.0:
+        fail(f"examples aviation: the tower channel peaks at {pk} Hz, want {EX_TONE}")
+    if [b for b in range(EX_WARM, stop) if b not in sends]:
+        fail(f"examples aviation: the tower's squelch did not hold open on the carrier: {sends}")
+    if not sends or sends[-1] > stop + tail + 3 or not audible or audible[-1] > stop:
+        fail(f"examples aviation: the squelch did not close within {tail + 3} blocks of the "
+             f"carrier's end at block {stop}: packets in {sends}, audio in {audible}")
+    if any(b >= EX_WARM for v in others.values() for b in v):
+        fail(f"examples aviation: quiet amsq channels sent: {out['others_blocks_sending']}")
+    if not out["guard_packets"] or out["guard_tone_prominence_db"] is None \
+            or out["guard_tone_prominence_db"] > 10.0:
+        fail(f"examples aviation: the guard (am, open) sent {out['guard_packets']} packets, "
+             f"the tone {out['guard_tone_prominence_db']} dB over its noise")
+    if len(pool) != g.C - 3 or len(pool) < int(rg.dyn_spare) or foreign:
+        fail(f"examples aviation: the amsq pool {pool} in C {g.C} (dyn-slots "
+             f"{rg.dyn_spare}), packets from SSRCs outside the table {foreign}")
+    return out
+
+
+def check_hf_example(run: dict) -> dict:
+    """Each tone heard within 10 Hz on its own channel, sent under its own
+    section's group, whose data stream is the section's own; W1AW (disable
+    = yes) built nothing and sent nothing."""
+    rg = run["graph"]
+    start = run["marks"][EX_WARM]
+    want = {(g, round(dial / 1000.0)): off for g, (dial, off) in EX_HF_USB.items()}
+    want[("10m-fm", round(EX_HF_FM / 1000.0))] = EX_TONE
+    heard = {}
+    for (grp, ssrc), f0 in want.items():
+        audio, rate, _ = rtp_audio(rg, ssrc, start)
+        ch = rg.chans.get(ssrc)
+        heard[grp] = {"ssrc": ssrc, "peak_hz": peak_hz(audio[:, 0], rate) if audio.size else None,
+                      "want_hz": f0, "rate": rate, "channel_group": ch.group if ch else None,
+                      "sent_under": sorted(str(x) for x in run["groups_of"].get(ssrc, ())),
+                      "data_stream": rg.engine.groups[ch.group].spec.data if ch else None}
+    w1aw = [s for s, c in rg.chans.items() if c.freq in EX_HF_W1AW]
+    out = {"heard": heard, "groups": {n: g.C for n, g in rg.engine.groups.items()},
+           "w1aw_channels": w1aw,
+           "streams": {n: g.spec.data for n, g in rg.engine.groups.items()}}
+    for grp, h in heard.items():
+        if h["peak_hz"] is None or abs(h["peak_hz"] - h["want_hz"]) > 10.0 \
+                or h["channel_group"] != grp or h["sent_under"] != [grp]:
+            fail(f"examples hf-generic: {grp}: {h}")
+    if heard["wspr"]["data_stream"] != "wspr-pcm.local" \
+            or heard["ft8"]["data_stream"] != "ft8-pcm.local" or heard["10m-fm"]["data_stream"]:
+        fail(f"examples hf-generic: data streams {out['streams']}")
+    if w1aw or "w1aw" in rg.engine.groups:
+        fail(f"examples hf-generic: the disabled W1AW section built channels {w1aw}")
+    return out
+
+
+def check_spectrum_example(run: dict) -> dict:
+    """The survey's last byte-format sweep of each channel: the carrier's
+    channel peaks within one bin of its index; every other channel's median
+    byte, through spectrum-base and -step, within 2 steps of the scene's
+    density over the channel's noise bandwidth; the group is the wide
+    algorithm's."""
+    from ka9q_radio_tpu_torch.net.status import StatusType as T, decode_status
+
+    rg = run["graph"]
+    g = rg.engine.groups["survey"]
+    last = {}
+    for kind, pkt in rg._sent:
+        if kind != "status":
+            continue
+        _, f, _ = decode_status(pkt)
+        if T.BIN_BYTE_DATA in f:
+            last[f[T.OUTPUT_SSRC]] = f
+    chans = sorted(c.ssrc for c in rg.chans.values() if c.group == "survey")
+    n0_db = EX_SPEC_N0_DB
+    ssrc_c = round(EX_SPEC_CHANNEL / 1000.0)
+    per = {}
+    for s in chans:
+        f = last.get(s)
+        if f is None:
+            continue
+        lv = np.frombuffer(f[T.BIN_BYTE_DATA], np.uint8).astype(np.int64)
+        base, step, nbw = f[T.SPECTRUM_BASE], f[T.SPECTRUM_STEP], f[T.NOISE_BW]
+        rbw = f[T.RESOLUTION_BW]
+        per[s] = {"bins": int(lv.size), "peak_index": int(np.argmax(lv)),
+                  "peak_db": float(base + lv.max() * step),
+                  "median_db": float(base + np.median(lv) * step),
+                  "density_db_hz": float(base + np.median(lv) * step - 10 * np.log10(nbw)),
+                  "step": step, "rbw": rbw, "noise_bw": nbw}
+    want_idx = int(round((EX_SPEC_CARRIER - EX_SPEC_CHANNEL) / per.get(ssrc_c, {}).get("rbw", 1e3)))
+    want_idx += g.spec.bin_count // 2
+    out = {"channels": len(chans), "answered": len(per), "wide": bool(g.spectrum_wide),
+           "carrier_ssrc": ssrc_c, "carrier_index": want_idx, "scene_n0_db_hz": n0_db,
+           "per_channel": {str(s): v for s, v in per.items()}}
+    if not g.spectrum_wide or len(per) != len(chans) or not chans:
+        fail(f"examples spectrum: wide {g.spectrum_wide}, {len(per)} of {len(chans)} channels "
+             "answered with BIN_BYTE_DATA")
+    c = per[ssrc_c]
+    if abs(c["peak_index"] - want_idx) > 1:
+        fail(f"examples spectrum: the carrier's channel peaks at bin {c['peak_index']}, "
+             f"want {want_idx}")
+    bad = {s: v["density_db_hz"] for s, v in per.items()
+           if s != ssrc_c and abs(v["density_db_hz"] - n0_db) > 2 * v["step"]}
+    if bad:
+        fail(f"examples spectrum: noise floors off the scene's {n0_db} dB/Hz: {bad}")
+    return out
+
+
+def check_fm_example(run: dict) -> dict:
+    """jazz: L peaks at 1 kHz, separation at least 30 dB (the wfm phase's
+    bound), the RDS companion stream decodes to EX_FM_PI; npr (channels =
+    1) sends one channel and hears its tone."""
+    from ka9q_radio_tpu_torch.daemons.rds import RdsDecoder
+
+    rg = run["graph"]
+    start = run["marks"][EX_WARM]
+    jazz = next(c for c in rg.chans.values() if c.group == "jazz" and not c.rds)
+    rds = next(c for c in rg.chans.values() if c.group == "jazz" and c.rds)
+    npr = next(c for c in rg.chans.values() if c.group == "npr" and not c.rds)
+    stereo, rate, counts = rtp_audio(rg, jazz.ssrc, start)
+    lpk, sep = separation(stereo, rate) if stereo.shape[1] == 2 and stereo.size else (None, None)
+    bb, _, _ = rtp_audio(rg, rds.ssrc, start)
+    dec = RdsDecoder(48_000.0)
+    st = dec.feed(bb[:, 0]) if bb.size else dec.station
+    mono, mrate, mcounts = rtp_audio(rg, npr.ssrc, start)
+    out = {"jazz": {"ssrc": jazz.ssrc, "channels_per_packet": sorted(set(counts)),
+                    "left_peak_hz": lpk, "separation_db": sep,
+                    "stereo_samples": int(stereo.shape[0])},
+           "rds": {"ssrc": rds.ssrc, "samples": int(bb.shape[0]), "pi": st.pi,
+                   "want_pi": EX_FM_PI, "ps": st.ps_name, "groups": st.groups,
+                   "block_errors": st.block_errors},
+           "npr": {"ssrc": npr.ssrc, "channels_per_packet": sorted(set(mcounts)),
+                   "peak_hz": peak_hz(mono[:, 0], mrate) if mono.size else None,
+                   "want_hz": EX_FM_NPR_TONE}}
+    if lpk is None or abs(lpk - EX_TONE) > 10.0 or sep < 30.0:
+        fail(f"examples fm: jazz L peak {lpk} Hz, separation {sep} dB (want {EX_TONE}, >= 30)")
+    if st.pi != EX_FM_PI or not st.groups:
+        fail(f"examples fm: RDS decoded PI {st.pi:#06x} over {st.groups} groups, want "
+             f"{EX_FM_PI:#06x}")
+    if set(mcounts) != {1} or out["npr"]["peak_hz"] is None \
+            or abs(out["npr"]["peak_hz"] - EX_FM_NPR_TONE) > 10.0:
+        fail(f"examples fm: npr {out['npr']}")
+    return out
+
+
+EXAMPLE_CHECKS = {"siggen": check_siggen_example, "aviation": check_aviation_example,
+                  "hf-generic": check_hf_example, "spectrum": check_spectrum_example,
+                  "fm": check_fm_example}
+
+
+EXAMPLE_KERNEL_KEYS = ("max_abs_err", "err_bound", "max_rel_err", "keys_equal", "ms", "plain_ms",
+                       "call_ms", "bound_ms", "bound_by", "library_ms", "library_call", "bytes",
+                       "ops", "shape")
+
+
+def run_example(name: str, device, tmp: Path) -> tuple[dict, dict]:
+    """One shipped example on the card: its scene through the graph and the
+    eager daemon (drive_example), its known answers, the two daemons' wires
+    and launches (example_wire), A and B at its groups' shapes
+    (example_kernels). Returns (its JSON, per kernel the checks by group)."""
+    t0 = time.perf_counter()
+    n = EXAMPLE_BLOCKS[name]
+    text, reduced = example_config(name, tmp, n)
+    scene_s = time.perf_counter() - t0
+    polls = None
+    if name == "spectrum":  # a bare poll arms the lazy survey (spectrum.c:54-77), then reads it
+        from ka9q_radio_tpu_torch.config import load_config
+
+        ssrcs = [c.resolved_ssrc() for g in load_config(text).groups for c in g.channels]
+        polls = {0: ssrcs, n - 1: ssrcs}
+    keep = n // 4  # inside the aviation carrier's run, past every turn-on
+    run = drive_example(text, device, n, keep, polls)
+    rg = run["graph"]
+    L = int(round(rg.cfg.samprate * rg.cfg.blocktime))
+    if rg.engine.L != L:
+        fail(f"examples {name}: engine L {rg.engine.L}, the capture's {L}")
+    answers = EXAMPLE_CHECKS[name](run)
+    wire = example_wire(name, run)
+    kernels = example_kernels(name, run)
+    eng = rg.engine
+    out = {"config": f"examples/radiod@{name}.conf", "reduced": reduced, "blocks": n,
+           "fs": rg.cfg.samprate, "real": eng.master.real, "L": eng.L, "N": eng.master.N,
+           "scene_s": scene_s, "init_s": run["init_s"],
+           "groups": {g: {"C": grp.C, "demod": grp.spec.demod, "tiled": bool(grp.tiled),
+                          "kernel_a": grp.tile_E is not None, "n_bins": grp.n_bins,
+                          "olen": grp.olen, "noise_bins": getattr(grp, "noise_bins", None)}
+                      for g, grp in eng.groups.items()},
+           "channels": len(rg.chans), "answers": answers, **wire,
+           "block_ms": run["block_ms"], "host_ms_per_dispatch": rg.frontend_split(),
+           "kernels": {g: {k: {x: v[x] for x in EXAMPLE_KERNEL_KEYS if x in v}
+                           for k, v in ks.items()} for g, ks in kernels.items()}}
+    if name == "spectrum" and (wire["launches"]["channelize"] or wire["launches"]["noise_est"]
+                               or kernels):
+        fail(f"examples spectrum: the wide survey launched {wire['launches']}")
+    if name == "fm" and (wire["launches"]["channelize"] or not wire["launches"]["noise_est"]
+                         or any("channelize" in ks for ks in kernels.values())):
+        fail(f"examples fm: launches {wire['launches']}: want B alone (the FFT-IDFT channelizer)")
+    for rd in (run["graph"], run["eager"]):
+        if rd.frontend is not None:
+            rd.frontend.close()
+    return out, kernels
+
+
+def example_kernel_row(per: dict, name: str) -> dict:
+    """A kernels-line row of the examples phase run alone: the contract's
+    keys from the example and group where the kernel took the longest,
+    the phase's launches, and every example's checks."""
+    best = max(((ex, g, v) for ex, by in per["by_example"].items()
+                for g, v in by.items() if isinstance(v, dict)), key=lambda t: t[2]["ms"])
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+
+    return {"route": "cuda", "source": cc.SOURCES[name], "replaces": cc.REPLACES[name],
+            **{k: best[2][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+            "at": f"{best[0]} {best[1]}", "launches": per["launches"],
+            "at_examples": per["by_example"]}
+
+
+def example_ingest(card: str, device, name: str, tool) -> dict:
+    """`name`'s RTP front end fed by ingest_blast at its own rate, width and
+    encoding (s16be), through ingest_daemon: frames accounted, outputs
+    finite, every section's RTP on its own stream; achieved Msps and the
+    host split reported, real time not gated."""
+    section, status, data, fs, width = EXAMPLE_FEEDS[name]
+    out, _ = ingest_daemon(card, device, ROOT / "examples" / f"radiod@{name}.conf", section,
+                           status, data, fs, width, INGEST_FPP, EX_INGEST_WARM,
+                           EX_INGEST_BLOCKS, False, tool)
+    out["reduced"].append(f"{EX_INGEST_BLOCKS} timed blocks after {EX_INGEST_WARM} warm ones, "
+                          f"{INGEST_FPP:,}-frame packets")
+    return out
+
+
+def run_examples(card: str, device) -> tuple[dict, dict]:
+    """The `examples` phase: siggen, aviation, hf-generic, spectrum and fm
+    from examples/ (run_example), then the four RTP-fed ones through their
+    RTP front end (example_ingest). Captures go to a temporary directory,
+    removed after. Returns (the phase's JSON, per kernel its launches and
+    checks by example and group)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    results, kernels = {}, {}
+    try:
+        for name in ("siggen", "aviation", "hf-generic", "spectrum", "fm"):
+            if device.type == "cuda":
+                import threading
+
+                free, total = torch.cuda.mem_get_info()
+                print(f"chip_smoke: examples {name}: device free {free / 2**30:.2f} of "
+                      f"{total / 2**30:.2f} GiB, reserved {torch.cuda.memory_reserved() / 2**30:.2f}"
+                      f", threads {sorted(t.name for t in threading.enumerate())}",
+                      file=sys.stderr, flush=True)
+            results[name], kernels[name] = run_example(name, device, tmp)
+            for f in tmp.iterdir():
+                f.unlink()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tool = tool_module("bench_ingest_torch")
+    ingest = {}
+    for name in EXAMPLE_FEEDS:
+        ingest[name] = example_ingest(card, device, name, tool)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    per_kernel = {}
+    for kname in ("channelize", "noise_est"):
+        per_kernel[kname] = {
+            "launches": sum(r["launches"][kname] for r in results.values()),
+            "by_example": {ex: {"launches": results[ex]["launches"][kname],
+                                **{g: {x: ks[kname][x] for x in EXAMPLE_KERNEL_KEYS
+                                       if x in ks[kname]}
+                                   for g, ks in kernels[ex].items() if kname in ks}}
+                           for ex in results}}
+    out = {"phase": "examples", "card": card, "examples": results, "ingest": ingest,
+           "reduced": [f"{EXAMPLE_BLOCKS[n]} blocks of {n}'s scene" for n in EXAMPLE_BLOCKS],
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out, per_kernel
+
+
 def main(only: str | None = None) -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -4100,6 +4846,10 @@ def main(only: str | None = None) -> None:
     if only == "calibration":  # the calibration phase alone
         _, at_cal = run_calibration(rt, card, device)
         finish([{"name": n, **v} for n, v in at_cal.items()], card)
+        return
+    if only == "examples":  # the examples phase alone
+        _, at_ex = run_examples(card, device)
+        finish([{**example_kernel_row(at_ex[n], n), "name": n} for n in at_ex], card)
         return
 
     # phase 2: kernels against their plain versions at the rx888 shapes
@@ -4413,6 +5163,15 @@ def main(only: str | None = None) -> None:
     for kern in kernels[:2]:
         kern["calibration_launches"] = at_cal[kern["name"]]["launches"]
         kern["at_calibration"] = at_cal[kern["name"]]
+    torch.cuda.empty_cache()
+
+    # phase 23: the shipped example deployments: siggen, aviation,
+    # hf-generic, spectrum and fm through radiod-torch on known scenes, graph
+    # daemon against eager daemon, A and B at their shapes, the RTP feeds
+    _, at_ex = run_examples(card, device)
+    for kern in kernels[:2]:
+        kern["examples_launches"] = at_ex[kern["name"]]["launches"]
+        kern["at_examples"] = at_ex[kern["name"]]["by_example"]
     finish(kernels, card)
 
 
@@ -4442,5 +5201,7 @@ if __name__ == "__main__":
                               torch.device("cuda", 0), FS))
     elif sys.argv[1:2] == ["--calibration"]:
         main(only="calibration")
+    elif sys.argv[1:2] == ["--examples"]:
+        main(only="examples")
     else:
         main()

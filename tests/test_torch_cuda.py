@@ -734,6 +734,31 @@ def test_mesh_graph_replay_equals_eager_step(cuda, D, time_shards):
     assert set(stats["eager_blocks"]) <= {"sweep: spectrum warm-up (frame weights 1/(n+1))"}
 
 
+def test_example_daemon_captures_repeat(cuda, tmp_path):
+    """examples/radiod@hf-generic.conf's daemon (four groups, an NBFM one
+    among them) built 60 times on the card, each capturing its graphs at
+    init and dispatching a block: every capture goes through. Once, in a
+    whole run of chip_smoke.py, the capture of this daemon's first branch
+    was invalidated (cudaErrorStreamCaptureInvalidated at fm_demod's first
+    reduction), cause unknown; this repeats the construction alone."""
+    import sys
+    from pathlib import Path
+
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    text, _ = chip_smoke.example_config("hf-generic", tmp_path, 2)
+    for _ in range(60):
+        rd = Radiod(load_config(text), use_network=False)
+        rd.step_block()
+        rd.frontend.close()
+        assert rd.graph_stats()["current"]["captures"] >= 1
+    torch.cuda.synchronize()
+
+
 def test_graph_capture_that_cannot_work_raises(cuda):
     """A branch that reads a device value back to the host (.item()) cannot
     be captured: GraphStep raises, naming the call, and the eager step and

@@ -181,11 +181,12 @@ def assert_same_payload(enc: Encoding, aj: bytes, at: bytes, what=""):
         raise AssertionError(f"{what}: no comparison for {enc!r}")
 
 
-def assert_same_wire(jsent: list, tsent: list, registry):
+def assert_same_wire(jsent: list, tsent: list, registry, skip=()):
     """The two daemons' packets, in order: RTP headers equal and each
     payload by the encoding its payload type has in `registry` (the port
     daemon's; the types are equal by the headers); status packets by
-    assert_same_fields. An Opus encoder's VBR byte count follows the last
+    assert_same_fields (`skip`: fields the caller compares itself). An
+    Opus encoder's VBR byte count follows the last
     bits of its input (payloads 53 and 58 bytes long from PCM within 1
     LSB), so each Opus stream is decoded (libopus) and the two held to the
     same frames a packet and a correlation of at least 0.99."""
@@ -193,7 +194,7 @@ def assert_same_wire(jsent: list, tsent: list, registry):
     opus: dict = {}
     for i, ((kind, pj), (_, pt)) in enumerate(zip(jsent, tsent)):
         if kind == "status":
-            assert_same_fields(pj, pt)
+            assert_same_fields(pj, pt, skip)
             continue
         hj, aj = RtpHeader.unpack(pj)
         ht, at = RtpHeader.unpack(pt)
@@ -246,8 +247,9 @@ def assert_same_mirrors(jr, tr):
 class DaemonPair:
     """The JAX daemon `j` and the port's `t` (device "cpu") on one config.
     dispatch "graph" patches the emulated graph body into the port's daemon
-    (monkeypatch: a pytest fixture's). `scene(b, L, rng)` makes block b.
-    step() feeds both the same blocks, cmd() the same command packet;
+    (monkeypatch: a pytest fixture's). `scene(b, L, rng)` makes block b;
+    scene None leaves each daemon its own front end (a file capture both
+    read). step() feeds both the same blocks, cmd() the same command packet;
     a background restock lands in both before the next block or state
     comparison; check() steps more blocks and holds the two to each
     other."""
@@ -283,6 +285,10 @@ class DaemonPair:
         D = self.t._time_shards
         for _ in range(n):
             self.settle()
+            if self.scene is None:
+                self.j.step_block()
+                self.t.step_block()
+                continue
             L, b = self.t.engine.L, self.t.blocks
             x = (np.stack([self.scene(b + d, L, self.rng) for d in range(D)]) if D
                  else self.scene(b, L, self.rng))
@@ -316,15 +322,16 @@ class DaemonPair:
         assert t.doppler == j.doppler
         assert_same_mirrors(j, t)
 
-    def check(self, steps: int = 1):
+    def check(self, steps: int = 1, skip=()):
         """Step `steps` more blocks (a params leaf a writer replaced raises
         at the next graph dispatch), then hold the daemons to each other:
-        state, the packets so far, and in graph dispatch graph_stats()
-        (every dispatch emulated, no eager block but the spectrum's counted
-        warm-up frames)."""
+        state, the packets so far (status fields in `skip` left to the
+        caller), and in graph dispatch graph_stats() (every dispatch
+        emulated, no eager block but the spectrum's counted warm-up
+        frames)."""
         self.step(steps)
         self.assert_same_state()
-        assert_same_wire(self.j._sent, self.t._sent, self.t.registry)
+        assert_same_wire(self.j._sent, self.t._sent, self.t.registry, skip)
         st = self.t.graph_stats()
         if self.dispatch == "graph":
             assert st["current"]["dispatch"] == "emulated"
