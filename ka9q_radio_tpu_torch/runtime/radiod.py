@@ -157,6 +157,31 @@ class _Chan:
     rds: bool = False  # emits the WFM channel's RDS baseband instead of audio
 
 
+def _counted(write):
+    def method(self, *args, **kwargs):
+        self.writes += 1
+        return write(self, *args, **kwargs)
+    method.__name__ = write.__name__
+    return method
+
+
+class _ChanTable(dict):
+    """The channel table (ssrc -> _Chan): a dict that counts the writes that
+    can add or drop a channel, so that a view kept of it (the emission's
+    walk, Radiod._walk_chans) knows when to make itself again. Reads are
+    the dict's own."""
+
+    writes = 0
+    __setitem__ = _counted(dict.__setitem__)
+    __delitem__ = _counted(dict.__delitem__)
+    __ior__ = _counted(dict.__ior__)
+    pop = _counted(dict.pop)
+    popitem = _counted(dict.popitem)
+    clear = _counted(dict.clear)
+    update = _counted(dict.update)
+    setdefault = _counted(dict.setdefault)
+
+
 class _LazyGroupInfo:
     """Per-dispatch lazily-fetched group info for BIG channel groups:
     only the leaves the host actually reads (beacon/poll fields) cross
@@ -377,6 +402,9 @@ class Radiod:
         self._beacon_plans: dict[str, list] = {}
         self.egress_overflows = 0  # blocks where open channels > egress slots
         self._dyn_ssrcs: set[int] = set()  # lifetime-scan working set
+        # the per-channel walk of _finish_block (_walk_chans) and its counts
+        self._walk: tuple | None = None
+        self._emission = dict.fromkeys(("blocks", "walked", "on_big_edges"), 0)
         # restock auto-provisioning (radio_status.c:92-105 ms-create
         # analog): per-class create timestamps + measured restock
         # latency EMA drive pool sizing (create-rate x latency rule)
@@ -388,7 +416,7 @@ class Radiod:
         enc_name = str(cfg.options.get("encoding", "s16be")).upper()
         default_enc = Encoding[enc_name] if enc_name in Encoding.__members__ else Encoding.S16BE
 
-        self.chans: dict[int, _Chan] = {}
+        self.chans: dict[int, _Chan] = _ChanTable()
         for gname, g in self.engine.groups.items():
             spec = g.spec
             out_rate, nch = _out_format(spec)
@@ -2204,6 +2232,12 @@ class Radiod:
                 "copy_ms": per("copy_s", fh["copies"]),
                 "h2d_bytes": fh["h2d_bytes"] / fh["copies"] if fh["copies"] else None}
 
+    def emission_counts(self) -> dict:
+        """_finish_block's counts since construction: the blocks emitted,
+        the channels its per-channel loop walked over them, and the
+        channels the big native edges carried instead."""
+        return dict(self._emission)
+
     def graph_stats(self) -> dict:
         """How dispatches ran on the card (GraphStep.graph_stats of the
         current engine, a mesh's included), and the totals of the engines
@@ -2296,10 +2330,12 @@ class Radiod:
                 self._ginfo[gname] = ginfo
                 if beacon:
                     self._staggered_beacons(gname, group_chans)
-        big_edges = {g for g, (_, gc) in self.edges.items() if len(gc) >= self.big_group_c}
-        for ch in self.chans.values():
-            if ch.group in big_edges:
-                continue  # big edge groups: handled above, O(C) loop skipped
+        walk, on_big = self._walk_chans()
+        n = self._emission
+        n["blocks"] += 1
+        n["walked"] += len(walk)
+        n["on_big_edges"] += on_big
+        for ch in walk:
             gout = host_out[ch.group]
             info = gout["info"]
             ch.last_info = info
@@ -2383,6 +2419,24 @@ class Radiod:
                     still.append((ssrc, tag))
             self._deferred_status = still
         return host_out
+
+    def _walk_chans(self) -> tuple[list, int]:
+        """The channels _finish_block's per-channel loop visits, in table
+        order: every channel but those of a group on a big native edge (C
+        >= big-group), which the edge's send and the staggered beacons
+        serve. Returns (them, the channels on big edges). Kept from block
+        to block, and made again once the table has been written (a channel
+        created or removed) or the big edges' channel lists are others
+        (every rebuild of the edges makes new lists, and a channel changes
+        group only in _move_channel, which rebuilds them)."""
+        big = {g: gc for g, (_, gc) in self.edges.items() if len(gc) >= self.big_group_c}
+        key = (self.chans.writes, [id(gc) for gc in big.values()])
+        if self._walk is None or self._walk[0] != key:
+            # the lists are kept with the key, so that no other list takes their ids
+            self._walk = (key, list(big.values()),
+                          [ch for ch in self.chans.values() if ch.group not in big],
+                          sum(map(len, big.values())))
+        return self._walk[2], self._walk[3]
 
     def run(self, nblocks: int | None = None, realtime: bool = False):
         t0 = time.monotonic()

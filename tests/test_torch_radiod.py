@@ -321,6 +321,119 @@ def test_big_group_beacons_keep_each_channels_interval(budget):
         assert_same_status(*(_without(p, T.OUTPUT_METADATA_PACKETS) for p in (pj, pt)))
 
 
+def _networked_big(conf: str, tag: str):
+    conf = conf.replace("[global]", f"[global]\nstatus = {tag}.local\ndata = {tag}-pcm.local\n"
+                        "advertise = no\nsap = no\nttl = 0")
+    return tradiod.Radiod(tload(conf), use_network=True, device="cpu")
+
+
+def _cmd(rd, ssrc: int, **fields):
+    rd.handle_packet(encode_status({T.OUTPUT_SSRC: ssrc, T.COMMAND_TAG: ssrc,
+                                    **{getattr(T, k): v for k, v in fields.items()}}, cmd=True))
+
+
+def _checkpoint_round_trip(rd, tmp_path):
+    rd.save_checkpoint(str(tmp_path / "ck.npz"))
+    assert rd.load_checkpoint(str(tmp_path / "ck.npz"))
+
+
+# each transition: actions taken one at a time (a block between each), and
+# whether the hf group is on its big native edge after the last
+WALK_TRANSITIONS = {
+    "none": ([], True),
+    "dynamic-create-then-remove": ([lambda rd, _: _cmd(rd, 9999, PRESET="usb",
+                                                       RADIO_FREQUENCY=75_000.0),
+                                    lambda rd, _: rd.remove_channel(9999)], True),
+    "maxdelay": ([lambda rd, _: _cmd(rd, 60, MAXDELAY=3)], False),
+    "redirect": ([lambda rd, _: _cmd(rd, 60, OUTPUT_DATA_DEST_SOCKET=("239.1.2.3", 5004))],
+                 False),
+    "opus": ([lambda rd, _: _cmd(rd, 60, OUTPUT_ENCODING=int(Encoding.OPUS))], False),
+    "preset-switch": ([lambda rd, _: _cmd(rd, 80, PRESET="lsb")], False),
+    "maxdelay-then-off": ([lambda rd, _: _cmd(rd, 60, MAXDELAY=3),
+                           lambda rd, _: _cmd(rd, 60, MAXDELAY=0)], True),
+    "rebuild": ([lambda rd, _: rd._rebuild(list(rd.engine.specs))], True),
+    "checkpoint": ([_checkpoint_round_trip], True),
+}
+
+
+@pytest.mark.parametrize("transition", list(WALK_TRANSITIONS))
+def test_emission_walk_follows_the_table_and_the_edges(transition, tmp_path):
+    """The channels _finish_block walks each block are, after every change
+    of the channel table or the native edges and one block, every channel
+    outside a group on a big native edge, in table order: none while the
+    8-channel hf group (big-group 4) keeps its edge, all of them once a
+    MAXDELAY, a redirect, an Opus encoding or a tombstoned slot has taken
+    it off; and emission_counts() counts the same channels a block."""
+    if transition == "opus":
+        from ka9q_radio_tpu_torch.native import native_has_opus
+        from ka9q_radio_tpu_torch.net import opus
+
+        if not (opus.available() or native_has_opus()):
+            pytest.skip("Opus needs libopus, absent on this host")
+    rd = _networked_big(BIG, f"torch-walk-{os.getpid()}-{transition}")
+    actions, on_edge = WALK_TRANSITIONS[transition]
+
+    def block_and_check():
+        before = rd.emission_counts()
+        rd.step_block()
+        after = rd.emission_counts()
+        big = {g for g, (_, gc) in rd.edges.items() if len(gc) >= rd.big_group_c}
+        want = [c for c in rd.chans.values() if c.group not in big]
+        walk, on_big = rd._walk_chans()
+        assert [id(c) for c in walk] == [id(c) for c in want]
+        assert after["blocks"] - before["blocks"] == 1
+        assert after["walked"] - before["walked"] == len(want)
+        assert after["on_big_edges"] - before["on_big_edges"] == on_big == sum(
+            len(rd.edges[g][1]) for g in big)
+        return big
+
+    big = block_and_check()
+    assert big == {"hf"}
+    for act in actions:
+        act(rd, tmp_path)
+        big = block_and_check()
+    assert ("hf" in big) == on_edge and len(rd.chans) == 8
+    walked = rd.emission_counts()["walked"]
+    rd.step_block()
+    assert rd.emission_counts()["walked"] - walked == (0 if on_edge else 8)
+
+
+def test_emission_walk_follows_big_edges_that_trade_places():
+    """Two big groups, one off its edge: when, between two blocks, it
+    regains its edge and the other loses its own (MAXDELAY off on one,
+    on on the other), the walk turns to the other group's channels,
+    though as many groups ride big edges as before."""
+    conf = BIG + "[hf2]\nmode = usb\nsamprate = 12k\nraster = 200k 240k 10k\n"
+    rd = _networked_big(conf, f"torch-walk-{os.getpid()}-trade")
+
+    def walk_after_a_block():
+        rd.step_block()
+        big = {g for g, (_, gc) in rd.edges.items() if len(gc) >= rd.big_group_c}
+        walk, _ = rd._walk_chans()
+        assert [id(c) for c in walk] == [id(c) for c in rd.chans.values() if c.group not in big]
+        return big, sorted({c.group for c in walk})
+
+    assert walk_after_a_block() == ({"hf", "hf2"}, [])
+    _cmd(rd, 210, MAXDELAY=3)
+    assert walk_after_a_block() == ({"hf"}, ["hf2"])
+    _cmd(rd, 210, MAXDELAY=0)
+    _cmd(rd, 60, MAXDELAY=3)
+    assert walk_after_a_block() == ({"hf2"}, ["hf"])
+
+
+def test_emission_counts_without_a_big_group():
+    """With no group at or above big-group (the BIG config at the default
+    4,096), every block walks the whole table and no channel rides a big
+    edge."""
+    rd = _networked_big(BIG.replace("big-group = 4\n", ""), f"torch-walk-{os.getpid()}-small")
+    assert "hf" in rd.edges and rd.big_group_c == 4096
+    n = 5
+    for _ in range(n):
+        rd.step_block()
+    assert rd.emission_counts() == {"blocks": n, "walked": n * len(rd.chans), "on_big_edges": 0}
+    assert len(rd.chans) == 8
+
+
 @pytest.mark.parametrize("budget,counts,intervals", [
     # 32,766 channels at update 25, one overridden to 50 and one to 100
     (16, {25: 32766, 50: 1, 100: 1}, {25: 2341, 50: 50, 100: 100}),
