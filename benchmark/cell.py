@@ -10,19 +10,21 @@ The run, in order:
            and warm-up dispatches that meet every graph the window will;
   window   `seconds` of dispatches, flat out (the next dispatch when
            step_block returns) or paced at the A/D's rate (dispatch j handed
-           over when its last sample is due);
+           over when its last sample is due), the card's time in the
+           engine steps on CUDA events (CardClock);
   trace    (--trace 1) the host split of the window by wrappers around
            Radiod's stages, a profiled stretch of dispatches, and each
            group's kernels timed by CUDA events at the cell's shapes;
   check    the receiver's datagrams against the reference (judge.py), once
            the program's state is freed.
 Everything a cell, a configuration or a metric needs is found by name:
-workloads/<cell>.json, configs/<config>.json, metrics/<metric>.py.
+workloads/<cell>.json, configs/<config>.json, metrics/<metric>.py, and
+(named.py) each group's detectors/<demod>.py and each kind of signal's
+signals/<kind>.py.
 """
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import multiprocessing as mp
 import socket
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from judge import as_payloads, gain_reading, judge, wave_errors
+from named import SetupError, module
 from reference import Reference
 from scene import make_scene
 from trace import event_ms, traced
@@ -42,10 +45,15 @@ from trace import event_ms, traced
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "ka9q_radio_tpu")
 CHECKS = ("packets_off", "wave_lsb", "gain_db")  # the numbers that decide `correct`
+# the keys of a workload that the harness reads itself; the rest is the
+# traffic generator's (scene.py)
+HARNESS_KEYS = ("config", "why", "loop", "warmup_dispatches", "trace_dispatches", "compare")
 
 
-class SetupError(RuntimeError):
-    """A failure before the window: the run fails and says so (no retry)."""
+# what radiod-torch's RTP front end holds of its A/D stream (RtpSource's
+# max_buffer_s): a block whose dispatch returns later than this after its
+# last sample was due has lost its samples in a deployment
+BUFFER_S = 2.0
 
 
 def load(kind: str, name: str) -> dict:
@@ -55,14 +63,15 @@ def load(kind: str, name: str) -> dict:
     return json.loads(path.read_text())
 
 
+def traffic(wl: dict) -> dict:
+    """The entries of workload `wl` that the generator reads, in their order."""
+    return {k: v for k, v in wl.items() if k not in HARNESS_KEYS}
+
+
 def reader(name: str):
     """metrics/<name>.py as a module: read(run) -> value or None, and
     optionally after_window(ctx) called while the daemon lives."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return module("metrics", name)
 
 
 def cell_metrics(bench: dict, cell: str, trace: bool) -> list[dict]:
@@ -165,6 +174,35 @@ class Wrappers:
             setattr(self.rd, a, self.orig[k])
 
 
+class CardClock:
+    """The card's seconds in the window's engine steps: CUDA events on the
+    step's stream around every replay of the step (GraphStep._replay: its
+    captured graph, or its graphless branch), read once the window has
+    closed. `pairs` holds one pair a replay: a dispatch that the step runs
+    eagerly passes no replay and is not timed."""
+
+    def __init__(self, rd, dev):
+        self.stepper = rd._stepper
+        self.pairs: list = []
+        stream, orig, pairs = torch.cuda.current_stream(dev), self.stepper._replay, self.pairs
+
+        def replay(*args):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record(stream)
+            r = orig(*args)
+            e1.record(stream)
+            pairs.append((e0, e1))
+            return r
+        self.stepper._replay = replay
+
+    def remove(self) -> None:
+        del self.stepper._replay
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / 1e3
+
+
 def _emission_paths(rd) -> dict:
     paths = {}
     for name, g in rd.engine.groups.items():
@@ -201,7 +239,7 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, t_s
     cfg = cfg if cfg is not None else load("configs", wl["config"])
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    scene = make_scene(cfg["reference"], wl, seed, dev)
+    scene = make_scene(cfg["reference"], traffic(wl), seed, dev)
     D = int(cfg["reference"].get("time_shards", 0))
     per = max(D, 1)
     if scene.ring.shape[0] % per:
@@ -259,7 +297,8 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, t_s
         first = b
         paced = wl["loop"] == "paced"
         lat_ms: list[float] = []
-        late_blocks = 0
+        late = lost_blocks = 0
+        card = CardClock(rd, dev) if on_card else None
         t_w = time.monotonic()
         setup_s = t_w - t_start
         period = per * blocktime  # s between dispatches: the A/D's own rate
@@ -277,8 +316,9 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, t_s
                 dispatch()
                 done = time.monotonic()
                 lat_ms.append((done - due) * 1e3)
-                if done > due + period:
-                    late_blocks += per
+                late += done > due + period
+                if done - due > BUFFER_S:
+                    lost_blocks += per
                 j += 1
             wall = time.monotonic() - t_w
         else:
@@ -288,6 +328,8 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, t_s
                 ends.append(time.monotonic() - t_w)
             wall = time.monotonic() - t_w
         window_blocks = b - first
+        if card is not None:
+            card.remove()
         mem_peak = torch.cuda.max_memory_allocated(dev) - base if on_card else 0
         if paced:
             # the 95th percentile is shown and not a metric: it spreads too widely between runs
@@ -301,9 +343,15 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, t_s
                 for q in parts]}
         run = {"loop": wl["loop"], "blocks": window_blocks, "window_s": wall,
                "blocktime": blocktime, "setup_s": setup_s, "latency_ms": lat_ms,
-               "dispatches": window_blocks // per, "cell": cell}
+               "dispatches": window_blocks // per, "cell": cell, "late_dispatches": late,
+               "card_s": card.seconds() if card else None,
+               "card_replays": len(card.pairs) if card else 0}
         captures_in_window = rd.graph_stats()["current"]["captures"] - captures0
-        failed = (rd.block_drops - drops0) + (rd.egress_overflows - over0) + late_blocks
+        # a block fails where it is lost: dropped, past the egress slots, or
+        # (paced) handed back after the front end would have overwritten it.
+        # A dispatch that ends after the next was due and within the buffer
+        # is late, not lost: the latency counts it, and late_pct.latency
+        failed = (rd.block_drops - drops0) + (rd.egress_overflows - over0) + lost_blocks
         readers = {m["name"]: reader(m["name"]) for m in cell_metrics(bench, cell, trace)}
         if trace:
             run["host_ms"] = dict(wraps.ms)
@@ -379,6 +427,9 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, t_s
                                         "rcvbuf_granted": rx["rcvbuf_granted"],
                                         "rcvbuf_errors": rx["rcvbuf_errors"]},
         "check_detail": checks["detail"],
+        "card_s": run["card_s"], "card_replays": run["card_replays"],
+        "late_dispatches": late, "lost_blocks": lost_blocks,
+        "latency_ms_max": max(lat_ms) if lat_ms else None,
     }
     if trace and run.get("trace") is not None:
         tr = run["trace"]
@@ -407,9 +458,10 @@ def kernel_rooflines(rd, scene, cfg) -> dict:
         params = rd.params[rg.name]
         if g.tile_E is not None:
             ms = event_ms(lambda: g._channelize(params, F))
-            out["channelize"].append((channelize_bound_ms(rg.shift, rg.n, rg.olen, ref.m.bins), ms))
+            out["channelize"].append(
+                (channelize_bound_ms(rg.shift, rg.n, rg.olen, ref.m.bins, ref.m.real), ms))
         ms = event_ms(lambda: g._noise_est(params, F))
-        out["noise_est"].append((noise_est_bound_ms(rg.noise_lo, rg.W), ms))
+        out["noise_est"].append((noise_est_bound_ms(rg.noise_lo, rg.W, ref.m.bins), ms))
     return out
 
 
@@ -419,18 +471,18 @@ def control_readings(cell: str, seed: int, blocks: int, device: str = "cuda",
     the plain reference put in the program's place and judged against the
     float64 reference over the blocks a run of the cell judges (from the end
     of its warm-up to `blocks`): `control`, computed in float32 with a TF32
-    channel IDFT; `gain_fault`, in float64 with every headroom and fixed gain
-    3 dB off; beside them `float32`, in float32 alone, which should read as
+    channel IDFT; `gain_fault`, in float64 with each group's detector's
+    fault (its `fault`: linear's and FM's, every headroom and fixed gain 3
+    dB off); beside them `float32`, in float32 alone, which should read as
     the program does. Returns {number: {reading: worst value}}."""
     wl = wl if wl is not None else load("workloads", cell)
     cfg = cfg if cfg is not None else load("configs", wl["config"])
     dev = torch.device(device)
-    scene = make_scene(cfg["reference"], wl, seed, dev)
+    scene = make_scene(cfg["reference"], traffic(wl), seed, dev)
     per = max(int(cfg["reference"].get("time_shards", 0)), 1)
     first = int(wl.get("warmup_dispatches", 4)) * per
-    faulty = dict(cfg["reference"], groups=[
-        dict(g, headroom_db=g.get("headroom_db", -15.0) + 3.0, gain_db=g.get("gain_db", 50.0) - 3.0)
-        for g in cfg["reference"]["groups"]])
+    faulty = dict(cfg["reference"], groups=[module("detectors", g["demod"]).fault(g)
+                                            for g in cfg["reference"]["groups"]])
     ref = Reference(cfg["reference"], scene.ring, device=dev)
     sides = {"control": Reference(cfg["reference"], scene.ring, device=dev, dtype=torch.float32,
                                   tf32=True),
@@ -441,7 +493,7 @@ def control_readings(cell: str, seed: int, blocks: int, device: str = "cuda",
         want = ref.audio(g, idx, blocks, first)
         for name, r in sides.items():
             got = r.audio(g, idx, blocks, first)
-            e, db = wave_errors(as_payloads(got["audio"], first), want, first)
+            e, db = wave_errors(as_payloads(got, first), want, first)
             out["wave_lsb"][name] = max(out["wave_lsb"][name], float(np.nanmax(e)))
             out["gain_db"][name] = max(out["gain_db"][name], gain_reading(db))
     return out

@@ -32,23 +32,30 @@ def bound_ms(nbytes: float, *ops: tuple[float, float]) -> float:
     return max([nbytes / HBM_BYTES_S] + [n / rate for n, rate in ops]) * 1e3
 
 
-def channelize_bound_ms(shifts: np.ndarray, n: int, olen: int, master_bins: int) -> float:
-    """Kernel A's bound for one launch over channels at bin `shifts` (a real
-    master, upright slices): S = whole tile rows covering any n-bin slice."""
+def channelize_bound_ms(shifts: np.ndarray, n: int, olen: int, master_bins: int,
+                        real: bool = True) -> float:
+    """Kernel A's bound for one launch over channels at bin `shifts`: S =
+    whole tile rows covering any n-bin slice, each distinct row of the
+    master once (a real master's upright slices clamp inside its rows; a
+    complex master's signed ones wrap through DC)."""
     C = len(shifts)
     S = (-(-n // TILE) + 1) * TILE
     n_rows = -(-master_bins // TILE)
     lo = (np.asarray(shifts, np.int64) - n // 2) // TILE
-    lo = np.clip(lo, 0, max(n_rows - S // TILE, 0))
-    rows = np.unique(lo[:, None] + np.arange(S // TILE))
+    if real:
+        rows = np.clip(lo, 0, max(n_rows - S // TILE, 0))[:, None] + np.arange(S // TILE)
+    else:
+        rows = (lo[:, None] + np.arange(S // TILE)) % n_rows
+    rows = np.unique(rows)
     nbytes = rows.size * TILE * 8 + C * S * 8 + n * olen * 8 + C * olen * 8 + 3 * C * 4
     nops = 6 * C * S + 2 * C * (S - n) + 8 * C * n * olen + 8 * C * olen
     return bound_ms(nbytes, (3 * nops, TF32_OPS_S))
 
 
-def noise_est_bound_ms(window_lo: np.ndarray, W: int) -> float:
+def noise_est_bound_ms(window_lo: np.ndarray, W: int, master_bins: int) -> float:
     """Kernel B's bound for one launch over channels whose N0 windows start
-    at bins `window_lo`, W bins each."""
+    at bins `window_lo`, W bins each (a complex master's signed starts wrap
+    through DC): each distinct bin once."""
     C = len(window_lo)
-    bins = np.unique(np.asarray(window_lo, np.int64)[:, None] + np.arange(W)).size
+    bins = np.unique((np.asarray(window_lo, np.int64)[:, None] + np.arange(W)) % master_bins).size
     return bound_ms(bins * 8 + C * (4 + 4 + 8), (C * W * 5, FP32_OPS_S), (C * W, INT32_OPS_S))

@@ -2,7 +2,7 @@
 
 It binds the daemon's data ports on 127.0.0.1, drains them while the daemon
 runs (the measured process never reads a socket), and keeps, for every
-datagram, its SSRC and RTP timestamp, and for the SSRCs it was asked to
+datagram, its SSRC, RTP timestamp and payload size, and for the SSRCs it was asked to
 keep, the payload. It imports neither torch nor the program.
 """
 from __future__ import annotations
@@ -41,13 +41,13 @@ def _bind(port: int) -> socket.socket:
 
 def serve(conn, ports: list[int], keep: list[int]) -> None:
     """Receive on `ports` until `conn` says "stop", then drain until the
-    sockets are quiet for 0.3 s and send back a dict: per packet the SSRC
-    and timestamp (arrays), the kept SSRCs' (timestamp,
+    sockets are quiet for 0.3 s and send back a dict: per packet the SSRC,
+    timestamp and payload bytes (arrays), the kept SSRCs' (timestamp,
     payload) lists, the bytes and datagrams of each port, the socket buffer
     granted and the host's UDP buffer overflows during the run."""
     socks = [_bind(p) for p in ports]
     keep_set = set(int(k) for k in keep)
-    ssrc, ts = array.array("I"), array.array("I")
+    ssrc, ts, size = array.array("I"), array.array("I"), array.array("I")
     kept: dict[int, list] = {k: [] for k in keep_set}
     per_port = {p: [0, 0] for p in ports}
     err0 = _rcvbuf_errors()
@@ -75,6 +75,7 @@ def serve(conn, ports: list[int], keep: list[int]) -> None:
                 t, sc = unpack(pkt, 4)
                 ssrc.append(sc)
                 ts.append(t)
+                size.append(len(pkt) - 12)
                 pp = per_port[port]
                 pp[0] += 1
                 pp[1] += len(pkt)
@@ -89,7 +90,7 @@ def serve(conn, ports: list[int], keep: list[int]) -> None:
     for s in socks:
         s.close()
     err1 = _rcvbuf_errors()
-    conn.send({"ssrc": ssrc, "ts": ts, "kept": kept, "per_port": per_port,
+    conn.send({"ssrc": ssrc, "ts": ts, "size": size, "kept": kept, "per_port": per_port,
                "rcvbuf_granted": granted,
                "rcvbuf_errors": err1 - err0 if err0 >= 0 and err1 >= 0 else None})
     conn.close()

@@ -2,11 +2,26 @@
 
 Plain PyTorch and NumPy, written from the receiver's published semantics
 (ka9q-radio's filter.c overlap-save filter bank, radio.c's N0 estimate,
-linear.c's block AGC and squelch, fm.c's discriminator, audio.c's s16
-packets). It imports nothing of the program under test: it works out again,
-from the same input blocks the program was handed, every channel's coarse
-and fine tuning, its filter response, the master spectra, the noise floors,
-the AGC and squelch state, and the audio each channel sends.
+audio.c's s16 packets). It imports nothing of the program under test: it
+works out again, from the same input blocks the program was handed, every
+channel's coarse and fine tuning, its filter response, the master spectra
+and the noise floors. What a channel does with its baseband (statistics,
+squelch, gain, the detector's output and its rails) is its group's detector,
+detectors/<demod>.py, found by the group's `demod` (named.py): linear.py
+(linear.c's block AGC and squelch), fm.py (fm.c's discriminator).
+
+A detector module gives:
+    constants(spec, g) -> dict    what it reads from the group's entry (g.k)
+    window_stats(g, bb, m) -> {name: [K] tensor}   per distinct window, from
+                                  the [K, olen] baseband before fine tuning
+    decide(g, stats, floors, blocks) -> {"send", "mute": [blocks, K] bool,
+                                  "rails": int or [blocks, K] int, ...}
+                                  floors yields (b, window s, [K] N0)
+    output(g, d, bs, bb, before) -> (x [len(bs), K, P, olen], gain
+                                  [len(bs), K, olen]) of fine-tuned bb;
+                                  before() is the [K] last sample of bs[0]-1
+    fault(spec) -> spec           the group entry with the gain fault the
+                                  control plants
 
 The default precision is float64. `Reference(..., dtype=torch.float32,
 tf32=True)` is the control: the same arithmetic in float32 with the channel
@@ -15,7 +30,8 @@ mantissa), the precision a faster channelizer kernel would be tempted to
 drop to.
 
 Input model: block b of the stream is ring[b % R] (the benchmark's ring of
-R distinct blocks); the master window of block b is the last M-1 samples of
+R distinct blocks: [R, L] real, or [R, L] complex for a complex master, I
+the real part); the master window of block b is the last M-1 samples of
 block b-1 (zeros before block 0) followed by block b, so there are R + 1
 distinct master spectra, and the per-block work is the recurrences.
 """
@@ -28,8 +44,10 @@ import re
 import numpy as np
 import torch
 
+from named import module
+
 __all__ = ["parse_freq", "Reference", "Master", "expand_channels", "round_tf32",
-           "noise_correction", "design_response", "fm_snr_correct"]
+           "noise_correction", "design_response", "db_v", "db_p", "POWER_ALPHA"]
 
 _MULT = {"k": 1e3, "m": 1e6, "g": 1e9}
 _Q32 = 1 << 32
@@ -112,8 +130,15 @@ class Master:
 
     @classmethod
     def of(cls, fs: float, blocktime: float = 0.02, overlap: int = 5, real: bool = True):
+        """A real master of N points has N/2 + 1 bins; a complex one N."""
         L = int(round(fs * blocktime))
         return cls(int(round(fs)), L, L // (overlap - 1) + 1, real)
+
+    @classmethod
+    def of_entry(cls, ref: dict):
+        """The master of a configuration's reference entry."""
+        return cls.of(parse_freq(ref["samprate"]), ref.get("blocktime", 0.02),
+                      ref.get("overlap", 5), ref.get("real", True))
 
     @property
     def N(self) -> int:
@@ -124,21 +149,24 @@ class Master:
         return self.N // 2 + 1 if self.real else self.N
 
 
-def _db_v(db: float) -> float:
+def db_v(db: float) -> float:
     return 10.0 ** (db / 20.0)
 
 
-def _db_p(db: float) -> float:
+def db_p(db: float) -> float:
     return 10.0 ** (db / 10.0)
 
 
 class _Group:
-    """One rate class: its channels' tuning, responses, noise windows and
-    demodulator constants, from the config's reference description."""
+    """One rate class: its channels' tuning, responses and noise windows,
+    its detector and the detector's constants (`k`), from the config's
+    reference description. On a complex master each channel's shift is
+    signed, from its frequency less the tuner's centre."""
 
-    def __init__(self, spec: dict, m: Master):
+    def __init__(self, spec: dict, m: Master, center: float = 0.0):
         self.name = spec["name"]
         self.demod = spec["demod"]
+        self.det = module("detectors", self.demod)
         self.rate = int(spec["samprate"])
         self.freqs = expand_channels(spec)
         self.C = len(self.freqs)
@@ -153,54 +181,49 @@ class _Group:
         self.inc = np.zeros(self.C, np.int64)
         self.adj = np.zeros(self.C, np.int64)
         for i, f in enumerate(self.freqs):
+            f = f - center
             sh = int(round(f / hz))
             rem = f - sh * hz
-            if not (m.real and 0 <= sh < m.N // 2):
-                raise ValueError(f"{self.name}: {f} Hz outside the real master's band")
+            if not (0 <= sh < m.N // 2 if m.real else abs(sh) < m.N // 2):
+                raise ValueError(f"{self.name}: {f + center} Hz outside the master's band")
             self.shift[i] = sh
             self.inc[i] = int(round(((-rem / self.rate) % 1.0) * _Q32)) & (_Q32 - 1)
             self.adj[i] = ((-sh * m.L) % m.N) * _Q32 // m.N
         self.resp = design_response(self.n, self.olen, self.low / self.rate, self.high / self.rate,
                                     float(spec.get("kaiser_beta", 11.0)), m.real, m.N)
         # the N0 window: the channel's bins widened to MIN_NOISE_BINS, on the
-        # 128-bin grid where whole tiles fit the master
+        # 128-bin grid where whole tiles fit the master; a complex master's
+        # around the signed shift inside the signed band (noise_cols wraps
+        # its bins through DC)
         nb = min(m.bins, max(self.n, MIN_NOISE_BINS))
-        tiled = m.bins >= -(-nb // TILE) * TILE
+        tiled = m.bins >= -(-nb // TILE) * TILE and (m.real or m.bins % TILE == 0)
         self.W = -(-nb // TILE) * TILE if tiled else nb
-        lo = np.clip(np.abs(self.shift) - self.W // 2, 0, max(m.bins - self.W, 0))
+        if m.real:
+            lo = np.clip(np.abs(self.shift) - self.W // 2, 0, max(m.bins - self.W, 0))
+        else:
+            lo = np.clip(self.shift - self.W // 2, -(m.bins // 2), (m.bins - 1) // 2 - (self.W - 1))
         self.noise_lo = lo // TILE * TILE if tiled else lo
-        self.sq_open = _db_p(spec.get("squelch_open_db", 8.0))
-        self.sq_close = _db_p(spec.get("squelch_close_db", 7.0))
-        self.sq_tail = int(spec.get("squelch_tail", 1))
-        self.snr_squelch = bool(spec.get("snr_squelch", False))
-        self.headroom = _db_v(spec.get("headroom_db", -15.0))
-        if self.demod == "linear":
-            self.agc = bool(spec.get("agc", True))
-            self.manual_gain = _db_v(spec.get("gain_db", 50.0))
-            self.hang_samples = int(spec.get("hangtime_s", 1.1) * self.rate)
-            self.recovery = _db_v(spec.get("recovery_rate_db", 20.0) / self.rate)
-            self.threshold = _db_v(spec.get("threshold_db", -15.0))
-        elif self.demod != "fm":
-            raise ValueError(f"{self.name}: the reference has no {self.demod!r} demodulator")
+        self.k = self.det.constants(spec, self)
 
 
 class Reference:
     """The reference receiver for one configuration (its `reference` entry:
     master rate and groups) over one ring of input blocks.
 
-    ring: [R, L] real blocks (the exact values handed to the program). The
-    methods run the stream's blocks 0..B-1 (block b = ring[b % R])."""
+    ring: [R, L] blocks, real or (a complex master) complex, the exact
+    values handed to the program. The methods run the stream's blocks
+    0..B-1 (block b = ring[b % R])."""
 
     def __init__(self, ref: dict, ring: torch.Tensor, device=None, dtype=torch.float64,
                  tf32: bool = False):
-        self.m = Master.of(parse_freq(ref["samprate"]), ref.get("blocktime", 0.02),
-                           ref.get("overlap", 5), ref.get("real", True))
+        self.m = Master.of_entry(ref)
         self.noise_every = int(ref.get("noise_every", 4))
         self.device = torch.device(device) if device is not None else ring.device
         self.rdt = dtype
         self.cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
         self.tf32 = tf32
-        self.groups = [_Group(g, self.m) for g in ref["groups"]]
+        center = parse_freq(ref.get("frequency", 0.0))
+        self.groups = [_Group(g, self.m, center) for g in ref["groups"]]
         self.ring = ring
         self.R = ring.shape[0]
         if ring.shape[-1] != self.m.L:
@@ -235,20 +258,29 @@ class Reference:
         if F is not None:
             return F
         m = self.m
-        cur = self.ring[0 if s == self.R else s].to(self.device, self.rdt)
+        dt = self.rdt if m.real else self.cdt
+        cur = self.ring[0 if s == self.R else s].to(self.device, dt)
         if s == self.R:
-            tail = torch.zeros(m.M - 1, dtype=self.rdt, device=self.device)
+            tail = torch.zeros(m.M - 1, dtype=dt, device=self.device)
         else:
-            tail = self.ring[(s - 1) % self.R, m.L - (m.M - 1):].to(self.device, self.rdt)
-        F = self._spec_cache[s] = torch.fft.rfft(torch.cat([tail, cur]))
+            tail = self.ring[(s - 1) % self.R, m.L - (m.M - 1):].to(self.device, dt)
+        x = torch.cat([tail, cur])
+        F = self._spec_cache[s] = torch.fft.rfft(x) if m.real else torch.fft.fft(x)
         return F
 
     def _gather(self, g: _Group, idx: np.ndarray) -> tuple:
         """(bins [K, n], valid [K, n], response [n]) of channels idx: each
-        channel's master bins in FFT order around its shift."""
+        channel's master bins in FFT order around its shift (a complex
+        master's wrap through DC and stop at its Nyquist)."""
         k = np.arange(g.n)
         signed = np.where(k < (g.n + 1) // 2, k, k - g.n)
         b = g.shift[idx][:, None] + signed[None, :]
+        N = self.m.N
+        if not self.m.real:
+            valid = (b >= -(N // 2)) & (b <= (N - 1) // 2)
+            return (torch.as_tensor(b % N, device=self.device),
+                    torch.as_tensor(valid, device=self.device),
+                    torch.as_tensor(g.resp, dtype=self.cdt, device=self.device))
         valid = (b >= 0) & (b < self.m.bins)
         return (torch.as_tensor(np.clip(b, 0, self.m.bins - 1), device=self.device),
                 torch.as_tensor(valid, device=self.device),
@@ -278,7 +310,8 @@ class Reference:
     def noise_cols(self, g: _Group, idx: np.ndarray) -> torch.Tensor:
         """[K, W] master bins of the N0 windows of channels idx."""
         cols = g.noise_lo[idx][:, None] + np.arange(g.W)
-        return torch.as_tensor(np.clip(cols, 0, self.m.bins - 1), device=self.device)
+        cols = np.clip(cols, 0, self.m.bins - 1) if self.m.real else cols % self.m.bins
+        return torch.as_tensor(cols, device=self.device)
 
     def noise_estimate(self, s: int, g: _Group, cols: torch.Tensor) -> torch.Tensor:
         """[K] N0 (power/Hz) of window s over the windows `cols`: the mean of
@@ -301,157 +334,95 @@ class Reference:
 
     def _stats(self, g: _Group, idx: np.ndarray, blocks: int) -> dict:
         """What the block decisions read, per distinct window s (the
-        fine-tuning phasors leave every magnitude as it is): the channels'
-        mean |bb|^2, the AGC's 2 ms sub-block peak power, FM's mean and
-        variance of |bb|, and N0 estimates on the windows of due blocks.
-        {name: {s: [K] float64 numpy}}."""
+        fine-tuning phasors leave every magnitude as it is): the detector's
+        statistics of the channels' baseband (window_stats), and N0
+        estimates on the windows of due blocks. {name: {s: [K] float64
+        numpy}}."""
         used = sorted({self.spectrum_index(b) for b in range(blocks)})
         due = {self.spectrum_index(b) for b in range(blocks) if self._due(b)}
-        out: dict = {"power": {}, "peak": {}, "amp": {}, "var": {}, "n0": {}}
-        N = g.olen
-        sps = min(max(int(round(N * 0.002 / (self.m.L / self.m.fs))), 1), N)
-        ns = max(N // sps, 1)
+        out: dict = {"n0": {}}
         for lo in range(0, len(idx), 4096):
             part = idx[lo:lo + 4096]
             gather, cols = self._gather(g, part), self.noise_cols(g, part)
             for s in used:
-                bb = self.baseband(s, g, gather)
-                p = bb.real ** 2 + bb.imag ** 2
-                vals = {"power": p.mean(-1),
-                        "peak": p[:, :ns * sps].reshape(-1, ns, sps).mean(-1).amax(-1)}
-                if g.demod == "fm":
-                    a = bb.abs()
-                    vals["amp"] = a.mean(-1)
-                    vals["var"] = ((a - vals["amp"][:, None]) ** 2).sum(-1)
+                vals = g.det.window_stats(g, self.baseband(s, g, gather), self.m)
                 if s in due:
                     vals["n0"] = self.noise_estimate(s, g, cols)
                 for k, v in vals.items():
-                    out[k].setdefault(s, []).append(v.double().cpu().numpy())
+                    out.setdefault(k, {}).setdefault(s, []).append(v.double().cpu().numpy())
         return {k: {s: np.concatenate(v) for s, v in d.items()} for k, d in out.items()}
 
-    def _decide(self, g: _Group, stats: dict, blocks: int) -> dict:
-        """The per-block decisions of blocks 0..blocks-1, in float64 on the
-        host: N0 (re-seeded while the master warms up, then an EMA on the
-        cadence), the squelch sequencer, and for the AGC each block's start
-        gain and per-sample gain change. Returns [blocks, K] arrays: send,
-        mute, g0, change, closing (FM: the phase memory is dropped)."""
-        K = len(next(iter(stats["power"].values())))
-        n0, sq = np.zeros(K), np.zeros(K, np.int64)
-        sq_open = np.ones(K, bool)
-        gain, hang = np.ones(K), np.zeros(K, np.int64)
+    def _floors(self, stats: dict, blocks: int):
+        """(b, window s, [K] N0) for blocks 0..blocks-1, in float64 on the
+        host: N0 re-seeded while the master warms up, then an EMA on the
+        cadence."""
         a = 1.0 - (1.0 - POWER_ALPHA) ** self.noise_every
-        out = {k: np.zeros((blocks, K), bool) for k in ("send", "mute", "closing")}
-        out["g0"], out["change"] = np.ones((blocks, K)), np.ones((blocks, K))
-        N = g.olen
+        n0 = None
         for b in range(blocks):
             s = self.spectrum_index(b)
             if self._due(b):
                 est = stats["n0"][s]
                 n0 = est if b < 2 else np.where(n0 <= 0, est, n0 + a * (est - n0))
-            power = stats["power"][s]
-            if g.demod == "fm":
-                noise = np.maximum(n0, 0.0) * g.bandwidth
-                with np.errstate(divide="ignore", invalid="ignore"):
-                    simple = np.where(noise > 0, power / np.maximum(noise, 1e-300) - 1.0, np.inf)
-                r = stats["amp"][s] ** 2 * (N - 1) / np.maximum(stats["var"][s], 1e-300)
-                snr = np.where(g.snr_squelch | ((sq <= 0) & (simple < g.sq_close)), simple,
-                               fm_snr_correct(r))
-                sq_max = g.sq_tail + 5
-                sq = np.where(snr >= g.sq_open, sq_max,
-                              np.where((sq > 0) & ((snr < g.sq_close) | (sq < sq_max)), sq - 1, sq))
-                out["send"][b] = sq >= 1
-                out["mute"][b] = sq < 5
-                out["closing"][b] = (sq >= 1) & (sq <= 4)
-                continue
-            if g.agc:
-                ampl, peak = np.sqrt(power), np.sqrt(stats["peak"][s])
-                bn = np.sqrt(g.bandwidth * np.maximum(n0, 0.0))
-                c_peak = peak * gain > math.sqrt(2.0) * g.headroom
-                c_strong = ampl * gain > g.headroom
-                c_noise = bn * gain > g.threshold * g.headroom
-                c_hang = hang > 0
-                with np.errstate(divide="ignore"):
-                    gc_strong = np.maximum(g.headroom / (ampl * gain + 1e-300), 1e-300) ** (1.0 / N)
-                    gc_noise = np.maximum(g.threshold * g.headroom / (bn * gain + 1e-300),
-                                          1e-300) ** (1.0 / N)
-                change = np.where(c_peak, 1.0, np.where(c_strong, gc_strong, np.where(
-                    c_noise, gc_noise, np.where(c_hang, 1.0, g.recovery))))
-                hang = np.where(c_peak, int(round(0.08 * g.rate)), np.where(
-                    c_strong, g.hang_samples, np.where(c_noise | ~c_hang, hang,
-                                                       np.maximum(hang - N, 0))))
-                g0 = np.where(c_peak, math.sqrt(2.0) * g.headroom / np.maximum(peak, 1e-300), gain)
-                out["g0"][b], out["change"][b] = g0, change
-                gain = g0 * change ** N
-            else:
-                out["g0"][b] = g.manual_gain
-            if g.snr_squelch:
-                snr = power / np.maximum(n0 * g.bandwidth, 1e-300) - 1.0
-                sq = np.where(snr >= g.sq_open, g.sq_tail + 4,
-                              np.where((sq > 0) & (snr < g.sq_close), sq - 1, sq))
-                sq_open = np.where(snr < g.sq_close, False,
-                                   np.where(~sq_open & (snr > g.sq_open), True, sq_open))
-            else:
-                sq, sq_open = np.full(K, g.sq_tail + 4), np.ones(K, bool)
-            out["send"][b] = sq > 0
-            out["mute"][b] = (sq < 4) | ~sq_open
-        return out
+            yield b, s, n0
+
+    def _decide(self, g: _Group, idx: np.ndarray, blocks: int) -> dict:
+        """The detector's per-block decisions of channels idx for blocks
+        0..blocks-1: [blocks, K] "send", "mute" and "rails", and what else
+        its output reads."""
+        stats = self._stats(g, idx, blocks)
+        d = g.det.decide(g, stats, self._floors(stats, blocks), blocks)
+        d["rails"] = np.broadcast_to(np.asarray(d["rails"], np.int64), d["send"].shape)
+        return d
 
     # ------------------------------------------------------------- sends
-    def sends(self, blocks: int, first: int = 0) -> dict[str, np.ndarray]:
-        """Every channel's squelch `send` flag (a packet due) for blocks
-        first..blocks-1: {group: [blocks - first, C] bool}."""
+    def decisions(self, blocks: int, first: int = 0) -> dict[str, dict]:
+        """Every channel's squelch `send` flag (a packet due) and payload
+        rails for blocks first..blocks-1: {group: {"send": [blocks - first,
+        C] bool, "rails": [blocks - first, C] int}}."""
         out = {}
         for g in self.groups:
-            idx = np.arange(g.C)
-            out[g.name] = self._decide(g, self._stats(g, idx, blocks), blocks)["send"][first:]
+            d = self._decide(g, np.arange(g.C), blocks)
+            out[g.name] = {"send": d["send"][first:], "rails": d["rails"][first:]}
         return out
+
+    def sends(self, blocks: int, first: int = 0) -> dict[str, np.ndarray]:
+        """{group: [blocks - first, C] bool} of decisions()."""
+        return {g: d["send"] for g, d in self.decisions(blocks, first).items()}
 
     # ------------------------------------------------------------- audio
     def audio(self, group: str, idx, blocks: int, first: int = 0) -> dict:
         """Channels idx of `group` for blocks first..blocks-1, as numpy:
-        "x" [B', K, olen] the detector's output before the gain (USB: the I
-        rail; NBFM: the phase step in half revolutions), "gain" [B', K, olen]
-        the gain applied to it, "audio" their product with muted blocks
-        zero, and "mute", "send" [B', K]."""
+        "x" [B', K, P, olen] the detector's output before the gain on each
+        of its P rails (USB: the I rail; I/Q: I and Q; NBFM: the phase step
+        in half revolutions), "gain" [B', K, olen] the gain applied to it,
+        "audio" their product with muted blocks zero, "rails" [B', K] the
+        rails of each block's payload (the first of the P), and "mute",
+        "send" [B', K]."""
         g = next(gr for gr in self.groups if gr.name == group)
         idx = np.asarray(idx, np.int64)
-        d = self._decide(g, self._stats(g, idx, blocks), blocks)
+        d = self._decide(g, idx, blocks)
         gather = self._gather(g, idx)
         spectra = sorted({self.spectrum_index(b) for b in range(blocks)})
         pre = torch.stack([self.baseband(s, g, gather) for s in spectra])
         slot = {s: i for i, s in enumerate(spectra)}
-        n = torch.arange(g.olen, dtype=torch.float64, device=self.device)
         xs, gs = [], []
         for b0 in range(first, blocks, 256):
             bs = list(range(b0, min(b0 + 256, blocks)))
             bb = pre[[slot[self.spectrum_index(b)] for b in bs]] * self._ramps(g, idx, bs)
-            if g.demod == "fm":
-                prev_last = (self._last(g, idx, b0 - 1, pre[slot[self.spectrum_index(b0 - 1)]])
-                             if b0 > 0 else torch.zeros(len(idx), dtype=self.cdt, device=self.device))
-                # the phase memory: the previous block's last sample, dropped
-                # while the squelch closes (and before the first block)
-                keep = np.zeros((len(bs), len(idx)), bool)
-                for j, b in enumerate(bs):
-                    if b > 0:
-                        keep[j] = ~d["closing"][b - 1]
-                keep = torch.as_tensor(keep, device=self.device)
-                pm = torch.cat([prev_last[None], bb[:-1, :, -1]])
-                pm = torch.where(keep, pm, torch.zeros_like(pm))
-                prev = torch.cat([pm[:, :, None], bb[:, :, :-1]], dim=-1)
-                z = bb * prev.conj()
-                x = torch.atan2(z.imag, z.real) / math.pi
-                gain = torch.full_like(x, 2.0 * g.headroom * g.rate / max(g.bandwidth, 1.0))
-            else:
-                x = bb.real
-                g0 = torch.as_tensor(d["g0"][bs], device=self.device)[..., None]
-                ch = torch.as_tensor(d["change"][bs], device=self.device)[..., None]
-                gain = g0 * torch.exp(n * torch.log(ch))
+
+            def before(b0=b0):
+                if b0 == 0:
+                    return torch.zeros(len(idx), dtype=self.cdt, device=self.device)
+                return self._last(g, idx, b0 - 1, pre[slot[self.spectrum_index(b0 - 1)]])
+
+            x, gain = g.det.output(g, d, bs, bb, before)
             xs.append(x.double().cpu().numpy())
             gs.append(gain.double().cpu().numpy())
         x, gain = np.concatenate(xs), np.concatenate(gs)
         mute = d["mute"][first:blocks]
-        return {"x": x, "gain": gain, "audio": np.where(mute[..., None], 0.0, gain * x),
-                "mute": mute, "send": d["send"][first:blocks]}
+        return {"x": x, "gain": gain,
+                "audio": np.where(mute[..., None, None], 0.0, gain[:, :, None] * x),
+                "rails": d["rails"][first:blocks], "mute": mute, "send": d["send"][first:blocks]}
 
     def _phase_q32(self, g: _Group, idx: np.ndarray, bs, t) -> torch.Tensor:
         """Q32 NCO phase words of blocks bs at samples t: (b + 1) adj +
@@ -471,21 +442,3 @@ class Reference:
         """[K] the last fine-tuned sample of block b."""
         ang = self._phase_q32(g, idx, [b], [g.olen - 1]).to(torch.float64) * (2 * math.pi / _Q32)
         return (pre_b[:, -1] * torch.polar(torch.ones_like(ang), ang).to(self.cdt)[0, :, 0])
-
-
-def fm_snr_correct(r: np.ndarray) -> np.ndarray:
-    """Ricean bias correction of the amplitude-variance SNR (misc.c fm_snr):
-    10 fixed-point steps of theta^2 = xi(theta^2) (1 + r) - 2; 0 below
-    pi / (4 - pi), r itself above 100."""
-    def i0e(x):
-        return torch.special.i0e(torch.from_numpy(x)).numpy()
-
-    def i1e(x):
-        return torch.special.i1e(torch.from_numpy(x)).numpy()
-
-    tsq = np.clip(r, 0.0, 100.0)
-    for _ in range(10):
-        x = 0.25 * tsq
-        t = (2.0 + tsq) * i0e(x) + tsq * i1e(x)
-        tsq = (2.0 + tsq - (0.125 * math.pi) * t * t) * (1.0 + r) - 2.0
-    return np.where(r <= math.pi / (4.0 - math.pi), 0.0, np.where(r > 100.0, r, np.maximum(tsq, 0.0)))

@@ -1,7 +1,8 @@
 """Shared fixtures of the benchmark's own tests: the harness's modules on the
 path, a small configuration that the CPU runs at 2.048 Msps (the same
 channel geometry as the cells: n 300, olen 240 at 12 kHz; n 600 at 24 kHz),
-and the `card` fixture that skips a test where no CUDA card is seen."""
+its complex twin (an I/Q stream around a tuner's centre, a group of two
+rails), and the `card` fixture that skips a test where no CUDA card is seen."""
 from __future__ import annotations
 
 import sys
@@ -61,8 +62,51 @@ SMALL_WL = {
     "fm": [{"group": "10m-fm", "select": "all", "dbfs": -66.0, "tone_hz": 1000.0,
             "deviation_hz": 2500.0}],
     "compare": [{"group": "hf", "select": {"tones": 4}}, {"group": "wspr"}, {"group": "10m-fm"}]}
-SMALL_BENCH = {"end_to_end": [{"name": "capacity_x", "unit": "x"}, {"name": "setup_s", "unit": "s"}],
+SMALL_BENCH = {"end_to_end": [{"name": "wall_capacity_x", "unit": "x"}, {"name": "setup_s", "unit": "s"}],
                "per_layer": []}
+
+# a complex A/D stream: 2.048 Msps I/Q tuned to 10 MHz, USB channels at
+# signed offsets of -600 to +800 kHz and two I/Q channels (two rails)
+COMPLEX_TEXT = """[global]
+sap = no
+advertise = no
+hardware = fe
+status = 127.0.0.1:{status}
+data = 127.0.0.1:{data}
+mode = usb
+time-shards = 2
+update = 2000
+[fe]
+device = external
+samprate = 2m048
+real = no
+frequency = 10m
+[usb]
+mode = usb
+samprate = 12k
+freq = "9m4 9m7 9m95 10m05 10m3 10m8"
+snr-squelch = yes
+[iq]
+data = 127.0.0.1:{data:iq}
+mode = iq
+freq = "9m85 10m15"
+"""
+COMPLEX_CFG = {
+    "name": "complex", "text": COMPLEX_TEXT,
+    "reference": {"samprate": "2m048", "real": False, "frequency": "10m", "time_shards": 2,
+                  "groups": [
+                      dict(_USB, name="usb", snr_squelch=True,
+                           freq=["9m4", "9m7", "9m95", "10m05", "10m3", "10m8"]),
+                      dict(_USB, name="iq", low=-5000.0, high=5000.0, stereo=True,
+                           freq=["9m85", "10m15"])]}}
+COMPLEX_WL = {
+    "config": "complex", "loop": "flat", "ring_blocks": 8, "warmup_dispatches": 2,
+    "trace_dispatches": 2, "noise": {"dbfs_per_hz": -138.0},
+    "tones": [{"group": "usb", "select": {"strata": 4}, "dbfs": -80.0,
+               "offset_hz": [1400.0, 1600.0]},
+              {"group": "iq", "select": "all", "dbfs": [-66.0, -56.0],
+               "offset_hz": [-2500.0, 2500.0]}],
+    "compare": [{"group": "usb", "select": {"tones": 4}}, {"group": "iq"}]}
 
 
 @pytest.fixture

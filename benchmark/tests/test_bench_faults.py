@@ -109,3 +109,29 @@ def test_a_packet_lost_or_misaddressed_fails_the_exact_count(monkeypatch, what):
     monkeypatch.setattr(radiod_mod.Radiod, "_finish_block", broken)
     res = _run()
     assert res["checks"]["packets_off"]["value"] > 0 and not res["correct"]
+
+
+@pytest.mark.parametrize("stalls, lost", [({5: 0.1}, False), ({5: 0.1, 15: 0.53}, True)])
+def test_a_late_dispatch_is_late_and_a_lost_block_fails(monkeypatch, stalls, lost):
+    """Paced at 40 ms a dispatch under a front end that holds 0.3 s: a
+    dispatch held up 0.1 s is late and no block fails; one held up 0.53 s,
+    and those that catch up after it, return more than 0.3 s after they were
+    due: their blocks are lost, and they alone fail. (The step is a stub that
+    returns at once, so the judge's numbers are not read here.)"""
+    seen = {"n": 0}
+
+    def stub(self, block=None):
+        seen["n"] += 1
+        time.sleep(stalls.get(seen["n"] - SMALL_WL["warmup_dispatches"], 0.0))
+
+    monkeypatch.setattr(radiod_mod.Radiod, "step_block", stub)
+    monkeypatch.setattr(cell, "BUFFER_S", 0.3)
+    res = cell.run_cell(SMALL_BENCH, "small", SEED, 1.5, False, time.monotonic(), device="cpu",
+                        wl=dict(SMALL_WL, loop="paced"), cfg=SMALL_CFG)
+    per = SMALL_CFG["reference"]["time_shards"]
+    assert res["failed"] == res["lost_blocks"] and res["failed"] % per == 0
+    if lost:  # 0.53 s less 40 ms a dispatch stays over 0.3 s for 6 dispatches
+        assert 4 * per <= res["failed"] <= 7 * per
+        assert res["late_dispatches"] >= 2 + res["failed"] // per
+    else:
+        assert res["failed"] == 0 and res["late_dispatches"] >= 1

@@ -1,16 +1,21 @@
 """The plain reference against itself: float32 reads as float64 does, and
 the control (float32 with a TF32 channel IDFT) reads above the limit, at a
-size the CPU holds; the reference imports nothing of the program."""
+size the CPU holds; its float64 results at a small ring of each cell's
+configuration are those recorded before its detectors were split into
+files of their own (golden.py); it imports nothing of the program."""
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
-from conftest import BENCH, ROOT, SMALL_CFG, SMALL_WL
+from conftest import BENCH, HERE, ROOT, SMALL_CFG, SMALL_WL
 
+import golden
+from cell import traffic
 from judge import LIMITS, as_payloads, gain_reading, wave_errors
 from reference import Reference, design_response
 from scene import make_scene
@@ -20,7 +25,7 @@ BLOCKS, FIRST = 400, 4  # 8 s: the AGC's gain has come up from 0 dB to the tones
 
 @pytest.fixture(scope="module")
 def scene():
-    return make_scene(SMALL_CFG["reference"], SMALL_WL, 2**31 + 101, "cpu")
+    return make_scene(SMALL_CFG["reference"], traffic(SMALL_WL), 2**31 + 101, "cpu")
 
 
 def _readings(scene, cfg=None, **kw) -> tuple[float, float]:
@@ -33,7 +38,7 @@ def _readings(scene, cfg=None, **kw) -> tuple[float, float]:
         idx = np.arange(min(g.C, 12))
         want = ref.audio(g.name, idx, BLOCKS, FIRST)
         got = other.audio(g.name, idx, BLOCKS, FIRST)
-        e, db = wave_errors(as_payloads(got["audio"], FIRST), want, FIRST)
+        e, db = wave_errors(as_payloads(got, FIRST), want, FIRST)
         worst, worst_db = max(worst, float(np.nanmax(e))), max(worst_db, gain_reading(db))
     return worst, worst_db
 
@@ -69,9 +74,35 @@ def test_response_passes_the_band_and_stops_the_rest():
     assert np.all(np.abs(r[(f < -1500) | (f > 4500)]) < 1e-3)
 
 
+@pytest.fixture(scope="module")
+def recorded():
+    return json.loads((HERE / "data" / "golden.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def computed():
+    return golden.digests(BENCH)
+
+
+@pytest.mark.parametrize("cell", golden.CELLS)
+@pytest.mark.parametrize("what", ["sends", "x", "gain"])
+def test_float64_results_are_those_recorded(recorded, computed, cell, what):
+    """The squelch's sends are flags, equal on any build; x and gain are
+    float64, equal bit for bit on the build they were recorded on (golden.py,
+    `build`) and to rounding (1e-12 of their RMS) on any."""
+    if what != "sends":
+        for g, want in recorded[cell]["values"][what].items():
+            assert golden.close(computed[cell]["values"][what][g], want, 1e-12), g
+    if what == "sends" or computed["build"] == recorded["build"]:
+        assert computed[cell][what] == recorded[cell][what]
+
+
 def test_the_reference_loads_nothing_of_the_program():
     code = ("import sys; sys.path[:0] = [{!r}, {!r}]\n"
-            "import reference, judge, scene, peaks, receiver\n"
+            "import reference, judge, scene, peaks, receiver, named\n"
+            "for kind in ('detectors', 'signals'):\n"
+            "    for f in sorted((named.HERE / kind).glob('*.py')):\n"
+            "        named.module(kind, f.stem)\n"
             "tops = {{m.split('.')[0] for m in sys.modules}}\n"
             "print(sorted(tops & {{'ka9q_radio_tpu_torch', 'ka9q_radio_tpu', 'jax', 'jaxlib', "
             "'flax'}}))").format(str(BENCH), str(ROOT))
