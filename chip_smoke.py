@@ -683,7 +683,7 @@ def run_scene(eng, params, device, seed: int = 1) -> dict:
         state, out = eng.step(state, params, block(b))
         outs.append(out)
     # the rx888 path's kernels (it runs no PLL or CTCSS recurrence)
-    launches = {k: cc.launches[k] for k in ("channelize", "noise_est")}
+    launches = {k: cc.launches[k] for k in MAIN_KERNELS}
     host_due = sum(1 for b in range(10) if b < 2 or b % eng.noise_every == 0)
     hf = [o["hf"] for o in outs[2:]]
     audio_k = torch.cat([o["audio"][k] for o in hf]).cpu().numpy()
@@ -778,7 +778,7 @@ def timed_run(eng, params, device, n0: float = N0_SCENE, nblocks: int = 64, warm
             "host_enqueue_ms_per_block": host_ms,
             "msps": eng.n_inputs * eng.L / (ms * 1e-3) / 1e6,
             "realtime_factor": eng.L / (ms * 1e-3) / eng.samprate,
-            "launches": {k: cc.launches[k] for k in ("channelize", "noise_est")},
+            "launches": {k: cc.launches[k] for k in MAIN_KERNELS},
             "due_blocks": due, "finite": outputs_finite(out),
             "if_power_shape": list(out["_frontend"]["if_power"].shape)}
 
@@ -811,7 +811,11 @@ def stage_split(eng, params, device) -> dict:
             "stage_wall_ms": {k: time_ms(f) for k, f in stages.items()}}
 
 
-KERNEL_NAMES = (("channelize", "channelize_kernel"), ("noise_est", "noise_kernel"))
+# the main path's kernels (A, B and the linear tail): the phases count their
+# launches; their device names in a trace
+MAIN_KERNELS = ("channelize", "noise_est", "linear_tail")
+KERNEL_NAMES = (("channelize", "channelize_kernel"), ("noise_est", "noise_kernel"),
+                ("linear_tail", "linear_tail_kernel"))
 RECUR_NAMES = (("pll_scan", "pll_scan_kernel"), ("goertzel", "goertzel_kernel"))
 
 
@@ -1066,9 +1070,11 @@ def run_daemon(card: str, device) -> tuple[dict, dict, object]:
     if rd.egress_overflows or rd.block_drops or max_count[0] >= g.spec.egress_slots // 4:
         fail(f"daemon: overflows {rd.egress_overflows}, drops {rd.block_drops}, "
              f"egress count up to {max_count[0]} of {g.spec.egress_slots}")
-    if launches["channelize"] != blocks + 8 * D or launches["noise_est"] != due:
+    want_tail = (blocks + 8 * D) * fused_groups(rd.engine)
+    if launches["channelize"] != blocks + 8 * D or launches["noise_est"] != due \
+            or launches["linear_tail"] != want_tail:
         fail(f"daemon: launch counts {launches}, want channelize {blocks + 8 * D}, "
-             f"noise_est {due}")
+             f"noise_est {due}, linear_tail {want_tail}")
 
     # the same farm with a realistic open fraction: DAEMON_OPEN more raster
     # channels each carry a weak tone near 1,500 Hz above their dial, added to the
@@ -1165,6 +1171,8 @@ def run_daemon(card: str, device) -> tuple[dict, dict, object]:
                                        "max_abs_err") if key in k},
             **({"max_rel_err": k["max_rel_err"]} if "max_rel_err" in k else {}),
             **({"err_bound": k["err_bound"]} if "err_bound" in k else {})}
+    per_kernel["linear_tail"] = {"C": g.C, "launches": launches["linear_tail"],
+                                 "in_daemon_ms": in_daemon["linear_tail"]}
     out["kernels_at_daemon"] = per_kernel
     return out, per_kernel, rd  # the clients phase records rd, then closes its edges
 
@@ -1679,7 +1687,9 @@ def check_vhf_daemon(v: dict) -> None:
     if s["bins"] != 64 or not s["narrowband"] or s["peak_bin"] != s["want_bin"] \
             or s["peak_over_median_db"] < 30.0:
         fail(f"vhf_daemon: spectrum poll {s}")
-    if min(v["launches"].values()) <= 0:
+    # the 2 m config's groups (pm, nfm, and the sam and isb switches) take
+    # no linear_tail: it runs usb, lsb and cw offsets without filter2
+    if min(n for k, n in v["launches"].items() if k != "linear_tail") <= 0:
         fail(f"vhf_daemon: a kernel of the path was not launched: {v['launches']}")
 
 
@@ -2229,10 +2239,11 @@ def shard_kernel_errors(le, lp, F, group: str) -> tuple[float, float, float, boo
 
 def mesh_step_check(em, device, n: int = 4) -> dict:
     """The main path of the sharded engine: n steps with the kernels' counts
-    set to 0 just before and read just after (A and B launch D times a
-    block, B on its cadence; on a mesh of several processes, this process's
-    shards' count), then one more step, one that re-estimates N0, counted
-    alone: D launches of each on the shards' C/D rows."""
+    set to 0 just before and read just after (A, B and the linear tail of
+    each fused group launch D times a block, B on its cadence; on a mesh of
+    several processes, this process's shards' count), then one more step,
+    one that re-estimates N0, counted alone: D launches of each on the
+    shards' C/D rows."""
     from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
 
     D, params = len(em.mesh.local), em.init_params()
@@ -2246,9 +2257,11 @@ def mesh_step_check(em, device, n: int = 4) -> dict:
     for b in range(4, 4 + n):
         st, out = em.step(st, params, blocks[b])
     torch.cuda.synchronize()
-    launches = {k: cc.launches[k] for k in ("channelize", "noise_est")}
-    if launches != {"channelize": D * n, "noise_est": D * due}:
-        fail(f"mesh D={D}: launches {launches}, want channelize {D * n}, noise_est {D * due}")
+    launches = {k: cc.launches[k] for k in MAIN_KERNELS}
+    nf = fused_groups(em)
+    if launches != {"channelize": D * n, "noise_est": D * due, "linear_tail": D * n * nf}:
+        fail(f"mesh D={D}: launches {launches}, want channelize {D * n}, noise_est {D * due}, "
+             f"linear_tail {D * n * nf}")
     if not outputs_finite(out):
         fail(f"mesh D={D}: non-finite outputs")
     if st["host"]["jobnum"] % em.noise_every:
@@ -2256,9 +2269,10 @@ def mesh_step_check(em, device, n: int = 4) -> dict:
     cc.reset_launches()
     em.step(st, params, blocks[4 + n])
     torch.cuda.synchronize()
-    one = {k: cc.launches[k] for k in ("channelize", "noise_est")}
-    if one != {"channelize": D, "noise_est": D}:
-        fail(f"mesh D={D}: the due step launched {one}, want {D} of each")
+    one = {k: cc.launches[k] for k in MAIN_KERNELS}
+    if one != {"channelize": D, "noise_est": D, "linear_tail": D * nf}:
+        fail(f"mesh D={D}: the due step launched {one}, want {D} of A and B, {D * nf} of "
+             "linear_tail")
     return {"blocks": n, "due_blocks": due, "launches": launches, "due_step_launches": one,
             "local_C": em.groups["hf"].C // em.mesh.size}
 
@@ -2665,9 +2679,10 @@ def run_multihost(card: str, out_dir: Path, one_process_ms: float) -> tuple[dict
             fail(f"multihost: worker {r} exited {rc} with no result: {se[-2000:]}")
         ranks.append(json.loads(last))
     for w in ranks:
+        one = w["main_path"]["due_step_launches"]  # the tail's held in the worker
         if w["main_path"]["launches"]["channelize"] != MH_LOCAL * w["main_path"]["blocks"] \
-                or w["main_path"]["due_step_launches"] != {"channelize": MH_LOCAL,
-                                                           "noise_est": MH_LOCAL}:
+                or {k: one[k] for k in ("channelize", "noise_est")} != {"channelize": MH_LOCAL,
+                                                                        "noise_est": MH_LOCAL}:
             fail(f"multihost rank {w['rank']}: launches {w['main_path']}")
     out = {"phase": "multihost", "card": card, "processes": MH_NPROC,
            "shards_per_process": MH_LOCAL, "transport": ranks[0]["transport"],
@@ -2766,11 +2781,18 @@ def ingest_config(conf: Path, section: str, port: int, dport: int, sport: int,
         "sap = no, advertise = no: no SAP or mDNS announcements (the run has no network)"], streams
 
 
+def fused_groups(eng) -> int:
+    """The engine's groups that launch the linear tail kernel each block
+    (`_Group.fused_tail`, with rows)."""
+    return sum(1 for g in eng.groups.values() if g.fused_tail and g.C > 0)
+
+
 def expected_launches(eng, j0: int, j1: int) -> dict:
-    """Kernel A and B launches of the engine's groups over blocks j0..j1-1,
-    every group made with the engine: A each block in a group that takes the
-    tiled kernel, B on the N0 cadence in each group that estimates N0 (and
-    on the first 2 blocks, the groups' warm-up)."""
+    """Kernel A, B and linear tail launches of the engine's groups over
+    blocks j0..j1-1, every group made with the engine: A each block in a
+    group that takes the tiled kernel, B on the N0 cadence in each group
+    that estimates N0 (and on the first 2 blocks, the groups' warm-up), the
+    linear tail each block in each fused group."""
     due = sum(1 for b in range(j0, j1)
               if b < 2 or eng.noise_every == 1 or b % eng.noise_every == 0)
     n_a = n_b = 0
@@ -2779,7 +2801,8 @@ def expected_launches(eng, j0: int, j1: int) -> dict:
             continue
         n_b += 1
         n_a += int(g.tiled and not g.spec.beam and g.tile_E is not None)
-    return {"channelize": (j1 - j0) * n_a, "noise_est": due * n_b}
+    return {"channelize": (j1 - j0) * n_a, "noise_est": due * n_b,
+            "linear_tail": (j1 - j0) * fused_groups(eng)}
 
 
 def leaves_finite(tree) -> tuple[bool, int]:
@@ -2925,7 +2948,7 @@ def ingest_daemon(card: str, device, conf: Path, section: str, status: str, data
         opened = {c.ssrc for c in rd.chans.values() if c.sending}  # after the last timed block
         heard_timed = set(heard)
         overflowed = rd.egress_overflows - ovf0
-        launches = {k: cc.launches[k] for k in ("channelize", "noise_est")}
+        launches = {k: cc.launches[k] for k in MAIN_KERNELS}
         want = expected_launches(eng, j0, rd.state["host"]["jobnum"])
         blocks, split = rd.blocks - b0, rd.frontend_split()
         p50, p99 = rd.latency_percentiles()
@@ -3275,7 +3298,7 @@ def run_tools(card: str, device) -> tuple[dict, dict]:
 
     t_phase = time.perf_counter()
     out = {"phase": "tools", "card": card, "reps": TOOLS_REPS, "bench": {}}
-    total = {"channelize": 0, "noise_est": 0}
+    total = dict.fromkeys(MAIN_KERNELS, 0)
     at: dict = {"channelize": {}, "noise_est": {}}
     for config in TOOLS_CONFIGS:
         t0 = time.perf_counter()
@@ -3330,7 +3353,7 @@ def run_tools(card: str, device) -> tuple[dict, dict]:
             fail(f"tools: prof_master on {label}: {rec['ms']}")
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
-    return out, {k: {"launches": total[k], "checks": at[k]} for k in total}
+    return out, {k: {"launches": total[k], "checks": at.get(k, {})} for k in total}
 
 
 # ------------------------------------------------------- the control plane
@@ -3932,7 +3955,7 @@ def calibration_engine(rt, device) -> dict:
             for g in bb:
                 bb[g].append(out[g]["info"]["baseband_power"].double().cpu())
     torch.cuda.synchronize()
-    launches = {k: cc.launches[k] for k in ("channelize", "noise_est")}
+    launches = {k: cc.launches[k] for k in MAIN_KERNELS}
     expect = expected_launches(eng, 0, CAL_BLOCKS)
     n0 = {g: out[g]["info"]["n0"].double().cpu().numpy() for g in bb}
     finite = outputs_finite(out)
@@ -4018,7 +4041,7 @@ def capacity_engine(rt, device) -> dict:
     stats = gs.graph_stats()
     return {"C": eng.groups["scan"].C, "fs": CAP_FS, "blocks": CAP_BLOCKS,
             "audio_shapes": sorted(shapes), "finite": finite,
-            "launches": {k: cc.launches[k] for k in ("channelize", "noise_est")},
+            "launches": {k: cc.launches[k] for k in MAIN_KERNELS},
             "expected": expected_launches(eng, 0, CAP_BLOCKS), "graphs": graph_summary(stats),
             "kernels": checks}
 
@@ -4389,7 +4412,7 @@ def drive_example(text: str, device, nblocks: int, keep: int,
     init_s = time.perf_counter() - t0
     re_ = eager_radiod(Radiod)(load_config(text), use_network=False, device=device)
     daemons = {"graph": rg, "eager": re_}
-    launches = {m: dict.fromkeys(("channelize", "noise_est"), 0) for m in daemons}
+    launches = {m: dict.fromkeys(MAIN_KERNELS, 0) for m in daemons}
     kept: dict = {}
     to_device, send_data = rg._to_device, rg._send_data
     groups_of: dict[int, set] = {}
@@ -4799,7 +4822,7 @@ def run_examples(card: str, device) -> tuple[dict, dict]:
         if device.type == "cuda":
             torch.cuda.empty_cache()
     per_kernel = {}
-    for kname in ("channelize", "noise_est"):
+    for kname in MAIN_KERNELS:
         per_kernel[kname] = {
             "launches": sum(r["launches"][kname] for r in results.values()),
             "by_example": {ex: {"launches": results[ex]["launches"][kname],
@@ -4812,6 +4835,58 @@ def run_examples(card: str, device) -> tuple[dict, dict]:
            "seconds": time.perf_counter() - t_phase}
     emit(out)
     return out, per_kernel
+
+
+# ----------------------------------------------------- the linear tail kernel
+# (C, N): hf-farm's usb group; hf-generic's WSPR, FT8 and FT4 groups
+TAIL_SHAPES = (("hf-farm usb", 32_728, 240), ("hf-generic WSPR", 12, 240),
+               ("hf-generic FT8", 10, 240), ("hf-generic FT4", 8, 240))
+TAIL_ROW_BYTES = 118  # the [C] inputs and outputs a row: 19 + 9 words and 6 bools
+
+
+def check_linear_tail(card: str, device) -> dict:
+    """The linear tail kernel (csrc/linear_tail.cu) against its plain chain
+    (linear_tail_plain on the card) at hf-farm's usb group and hf-generic's
+    three usb groups, on the card tests' mixed rows (tests/test_torch_cuda.py
+    `_tail_rows`: the AGC, the CW shift and the SNR squelch each on about
+    half the rows, every AGC branch and squelch state) and held as those
+    tests hold it (`_tail_against_plain`: audio within 1e-5 of the row
+    peak, the NCO words equal, every decision equal off its knife edge).
+    Then its ms (event_ms, a graph of 20 calls) beside the plain chain's,
+    its bound by bytes and the share of it reached. Returns the kernel's
+    row of the kernels line."""
+    from ka9q_radio_tpu_torch.ops import cuda_channelize as cc
+    from ka9q_radio_tpu_torch.ops.cuda_tail import cuda_linear_tail, linear_tail_plain
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_cuda import _AGC_BRANCHES, _tail_against_plain, _tail_rows
+
+    kw = dict(samprate=12_000, blocktime=0.02)
+    rows = []
+    for at, C, N in TAIL_SHAPES:
+        args = _tail_rows(C, N, device, seed=C)
+        try:
+            dec = _tail_against_plain(args)
+        except AssertionError as e:
+            fail(f"linear_tail at {at}: the kernel differs from its plain chain: {e!r}")
+        got, want = cuda_linear_tail(*args, **kw), linear_tail_plain(*args, **kw)
+        off = torch.as_tensor(~dec["edge"], device=device)
+        peak = want[3].abs().amax(-1).clamp(min=1e-30)
+        err = ((got[3] - want[3]).abs().amax(-1) / peak)[off]
+        ms = event_ms(lambda: cuda_linear_tail(*args, **kw), what=f"linear_tail {at}")
+        plain_ms = event_ms(lambda: linear_tail_plain(*args, **kw), what=f"plain tail {at}")
+        b = C * (12 * N + TAIL_ROW_BYTES) / HBM_BYTES_S * 1e3
+        branch = dec["branch"][~dec["edge"]]
+        rows.append({"at": at, "C": C, "N": N, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                     "bound_by": "bytes", "share_of_bound": b / ms,
+                     "max_err_of_row_peak": float(err.max()) if err.numel() else 0.0,
+                     "knife_edge_rows": int(dec["edge"].sum()),
+                     "agc_branches": {name: int((branch == k).sum())
+                                      for k, name in enumerate(("off",) + _AGC_BRANCHES, -1)},
+                     "open_rows": int(got[4]["send"].sum())})
+        emit({"phase": "linear_tail", "card": card, **rows[-1], **timing_note()})
+    return {"name": "linear_tail", "route": "cuda", "source": cc.SOURCES["linear_tail"],
+            "replaces": cc.REPLACES["linear_tail"], "at": rows}
 
 
 def main(only: str | None = None) -> None:
@@ -4872,6 +4947,10 @@ def main(only: str | None = None) -> None:
     emit({"phase": "kernels_hf32000", "card": card, **big})
     for kern in kernels:
         kern["at_hf32000"] = big[kern["name"]]
+    # the linear tail kernel against its plain chain at the cells' usb
+    # groups; its row joins the kernels line last, with its launches on the
+    # main path below
+    tail = check_linear_tail(card, device)
 
     # phase 3: known-answer scene through the main path
     sc = run_scene(eng, params, device)
@@ -4883,9 +4962,11 @@ def main(only: str | None = None) -> None:
     if abs(sc["n0_median_dev_db"]) > 1.0 or sc["n0_frac_within_1db"] < 0.95:
         fail(f"N0 off the calibrated {N0_SCENE}: median {sc['n0_median_dev_db']} dB, "
              f"{sc['n0_frac_within_1db']} of channels within 1 dB")
-    if sc["launches"] != {"channelize": sc["blocks"], "noise_est": sc["due_blocks"]}:
+    nf = fused_groups(eng)
+    if sc["launches"] != {"channelize": sc["blocks"], "noise_est": sc["due_blocks"],
+                          "linear_tail": sc["blocks"] * nf}:
         fail(f"launch counts {sc['launches']}: want channelize {sc['blocks']}, "
-             f"noise_est {sc['due_blocks']}")
+             f"noise_est {sc['due_blocks']}, linear_tail {sc['blocks'] * nf}")
     if not sc["sweep_finite"] or sc["sweep_shape"] != [16, 128]:
         fail("sweep bins not finite or of the wrong shape")
     if abs(sc["retune_peak_hz"] - sc["retune_expected_hz"]) > 10.0:
@@ -4894,12 +4975,13 @@ def main(only: str | None = None) -> None:
         fail(f"retune reallocated {sc['retune_rebuilt']}")
     for kern in kernels:
         kern["launches"] = sc["launches"][kern["name"]]
+    tail["launches"] = sc["launches"]["linear_tail"]
 
     # phase 4: sustained rate over distinct random blocks, no host syncs
     tr = timed_run(eng, params, device)
     emit({"phase": "timed", "card": card, **tr})
-    if tr["launches"] != {"channelize": tr["blocks"], "noise_est": tr["due_blocks"]} \
-            or not tr["finite"]:
+    if tr["launches"] != {"channelize": tr["blocks"], "noise_est": tr["due_blocks"],
+                          "linear_tail": tr["blocks"] * nf} or not tr["finite"]:
         fail(f"timed run: launches {tr['launches']}, finite {tr['finite']}")
     # where the time goes: each stage alone (CUDA events), then the device's
     # kernel time inside the step (profiler) against the block time above
@@ -4909,6 +4991,8 @@ def main(only: str | None = None) -> None:
           "device_idle_share": 1.0 - busy["busy_ms_per_block"] / tr["ms_per_block"]})
     for kern in kernels:
         kern["in_step_ms"] = busy["kernel_in_step_ms_per_launch"][kern["name"]]
+    tail.update(timed_launches=tr["launches"]["linear_tail"],
+                in_step_ms=busy["kernel_in_step_ms_per_launch"]["linear_tail"])
 
     # phase 5: the daemon at full width (the port's Radiod over its Engine)
     dmn, at_daemon, farm = run_daemon(card, device)
@@ -4916,6 +5000,8 @@ def main(only: str | None = None) -> None:
     for kern in kernels:
         kern["daemon_launches"] = at_daemon[kern["name"]]["launches"]
         kern["at_daemon"] = at_daemon[kern["name"]]
+    tail.update(daemon_launches=at_daemon["linear_tail"]["launches"],
+                at_daemon=at_daemon["linear_tail"])
     torch.cuda.empty_cache()
 
     # phase 6: the kernels at the VHF shapes: A and B at nbfm400 (complex
@@ -5017,7 +5103,9 @@ def main(only: str | None = None) -> None:
     ms = multife_scene(meng, mparams, device)
     check_multife_scene(ms)
     tm = timed_run(meng, mparams, device)
-    if tm["launches"] != {"channelize": tm["blocks"], "noise_est": tm["due_blocks"]} \
+    want_tail = tm["blocks"] * fused_groups(meng)
+    if tm["launches"] != {"channelize": tm["blocks"], "noise_est": tm["due_blocks"],
+                          "linear_tail": want_tail} \
             or not tm["finite"] or tm["if_power_shape"] != [MULTI_B]:
         fail(f"multife timed run: launches {tm['launches']}, finite {tm['finite']}, "
              f"if_power {tm['if_power_shape']}")
@@ -5145,6 +5233,7 @@ def main(only: str | None = None) -> None:
     for kern in kernels[:2]:
         kern["tools_launches"] = at_tools[kern["name"]]["launches"]
         kern["at_tools"] = at_tools[kern["name"]]["checks"]
+    tail["tools_launches"] = at_tools["linear_tail"]["launches"]
 
     # phase 21: the control plane: the flagship through doppler, KAISER_BETA,
     # GAIN, MAXDELAY and a preset switch as graph replays; the control-plane
@@ -5172,7 +5261,8 @@ def main(only: str | None = None) -> None:
     for kern in kernels[:2]:
         kern["examples_launches"] = at_ex[kern["name"]]["launches"]
         kern["at_examples"] = at_ex[kern["name"]]["by_example"]
-    finish(kernels, card)
+    tail["examples_launches"] = at_ex["linear_tail"]["launches"]
+    finish(kernels + [tail], card)
 
 
 def finish(kernels: list, card: str) -> None:

@@ -99,13 +99,22 @@ def main(argv=None) -> int:
     try:
         remaining = args.blocks
         last_ckpt = time.monotonic()
+        # a stats line every 500 blocks, at the end of a finite run, and at
+        # the end of the first chunk (about 50 blocks, whole dispatches)
+        # after SIGUSR1 raises the level
+        per = rd._time_shards or 1
+        chunk = -(-50 // per) * per
+        since, shown = 0, _Verb.level
         while remaining is None or remaining > 0:
-            n = 500 if remaining is None else min(500, remaining)
+            n = chunk if remaining is None else min(chunk, remaining)
             rd.run(nblocks=n, realtime=not args.flat_out)
+            since += n
             if remaining is not None:
                 remaining -= n
-            if _Verb.level:
+            if _Verb.level and (since >= 500 or remaining == 0 or _Verb.level > shown):
                 print(rd.stats_line(), file=sys.stderr)
+                since = 0
+            shown = _Verb.level
             if args.checkpoint and time.monotonic() - last_ckpt >= args.checkpoint_interval:
                 rd.save_checkpoint(args.checkpoint)
                 last_ckpt = time.monotonic()

@@ -7,8 +7,10 @@ Counterpart of ka9q_radio_tpu/ops/pallas_channelize.py:
 
 The loader here also builds and binds csrc/recur.cu, the demodulators'
 per-sample recurrences (pll_scan, goertzel), whose wrappers are in
-ops/cuda_recur.py; those are not TPU kernels (the JAX package runs them as
-lax.scan).
+ops/cuda_recur.py, and csrc/linear_tail.cu, the linear demodulator's tail
+(linear_tail), whose wrapper is in ops/cuda_tail.py; those are not TPU
+kernels (the JAX package runs the recurrences as lax.scan and the tail as
+jitted array code).
 
 The kernels compute what the plain PyTorch versions compute
 (ops/filterbank.py `tiled_channelize`; ops/noise.py `gather_noise_bins` +
@@ -77,16 +79,21 @@ _KERNELS = {
                   [_V, _LL, _LL, _I, _I, _V, _V, _I, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]),
     "pll_scan": ("recur.cu", "ka9q_pll_scan", [_V, _I, _I] + [_V] * 16),
     "goertzel": ("recur.cu", "ka9q_goertzel_block", [_V, _I, _I] + [_V] * 6),
+    "linear_tail": ("linear_tail.cu", "ka9q_linear_tail",
+                    [_I, _I, _LL, _I, _I, _I, _F, _F, _V, _V]),
 }
-# per-source flags beyond _NVCC_FLAGS: the recurrences round every operation
-# on its own, as their plain versions do (csrc/recur.cu)
-_SRC_FLAGS = {"recur.cu": ("-fmad=false",)}
+# per-source flags beyond _NVCC_FLAGS: the recurrences and the linear tail
+# round every operation on its own, as their plain versions do
+# (csrc/recur.cu, csrc/linear_tail.cu)
+_SRC_FLAGS = {"recur.cu": ("-fmad=false",), "linear_tail.cu": ("-fmad=false",)}
 SOURCES = {name: f"ka9q_radio_tpu_torch/csrc/{src}" for name, (src, _, _) in _KERNELS.items()}
 REPLACES = {
     "channelize": "ka9q_radio_tpu/ops/pallas_channelize.py:168 (pallas_channelize; pallas_call at :214)",
     "noise_est": "ka9q_radio_tpu/ops/pallas_channelize.py:288 (pallas_noise_est; pallas_call at :324)",
     "pll_scan": "ka9q_radio_tpu/models/linear.py:66-89 (the PLL's lax.scan; not a TPU kernel)",
     "goertzel": "ka9q_radio_tpu/ops/iir.py:172-177 (the Goertzel's lax.scan; not a TPU kernel)",
+    "linear_tail": ("ka9q_radio_tpu/runtime/engine.py:1123 and models/linear.py:108-236 (fine "
+                    "tune, AGC, detection and squelch as jitted array code; not a TPU kernel)"),
 }
 
 # kernel A's tiling (csrc/channelize.cu): K chunk and column tile

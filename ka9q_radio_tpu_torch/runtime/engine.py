@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda_channelize import channelize_operand, cuda_channelize, cuda_noise_est
+from ..ops.cuda_tail import cuda_linear_tail
 from ..ops.filter_design import design_bandpass_response, response_to_device_order
 from ..ops.filterbank import (
     _CTILE,
@@ -208,6 +209,15 @@ class GroupSpec:
             object.__setattr__(self, "snr_squelch", True)
 
 
+def takes_fused_tail(spec: GroupSpec, device) -> bool:
+    """Whether a group runs its tail as the linear_tail kernel
+    (ops/cuda_tail.py): a linear group without PLL, envelope, stereo,
+    filter2 or ISB (usb, lsb, a cw offset), on the card. Every other group
+    runs the plain chain."""
+    return (spec.demod == "linear" and not (spec.enable_pll or spec.envelope or spec.stereo)
+            and spec.filter2 <= 0 and not spec.isb and torch.device(device).type == "cuda")
+
+
 def _tree_to(tree, dev: torch.device):
     """A tree of tensors (None leaves kept) on dev."""
     if isinstance(tree, dict):
@@ -327,6 +337,7 @@ class _Group:
                                               device=device)
                 # the channelizer kernel's form of tile_E (split real-block GEMM operand)
                 self.tile_op = channelize_operand(self.tile_E, self.n_bins, self.olen)
+        self.fused_tail = takes_fused_tail(spec, device)
         self.lcs = self._local_consts()
         self.params = self._build_params()
 
@@ -815,10 +826,11 @@ class _Group:
 
     def _demod_tail(self, state, params, bb, n0_est, due: bool, warm: bool, frames: int = 0,
                     d: int = 0, compact: bool = True):
-        """N0 EMA on the cadence, fine-tune NCO, filter2 cascade, demod.
+        """N0 EMA on the cadence, fine-tune NCO, filter2 cascade, demod (a
+        fused_tail group: all but the EMA as the linear_tail kernel).
         frames: a narrowband spectrum group's host frame count; d: the shard
-        (its device constants); compact=False leaves egress compaction to the
-        caller (a split group compacts its whole output)."""
+        (its device constants); compact=False leaves egress compaction to
+        the caller (a split group compacts its whole output)."""
         prev_n0 = state["dc"]["n0"]
         if not due:
             n0 = prev_n0
@@ -828,38 +840,46 @@ class _Group:
             alpha = float(np.float32(self.noise_alpha))
             n0 = torch.where(prev_n0 <= 0, n0_est, prev_n0 + alpha * (n0_est - prev_n0))
 
-        bb, acc = fine_tune(bb, state["dc"]["acc_q32"], params["inc_q32"], params["adj_q32"])
-        new_dc = {"acc_q32": acc, "n0": n0,
-                  "warmup": torch.clamp(state["dc"]["warmup"] - 1, min=0)}
-        if self.f2_N:
-            # filter2 cascade (radio.c:1543-1554): a second overlap-save stage
-            # at the output rate, exact passband edges
-            buf = torch.cat([state["dc"]["tail2"], bb], dim=1)  # [C, f2_N]
-            new_dc["tail2"] = buf[:, self.f2_L:]
-            fd = torch.fft.fft(buf) * params["responses2"]
-            if self.spec.isb:
-                fd = isb_unpack(fd)  # LSB/USB -> I/Q (filter.c:862-876)
-            bb = torch.fft.ifft(fd)[:, self.f2_N - self.olen:]
-        bb_power = (bb.real * bb.real + bb.imag * bb.imag).mean(-1)
         spec, lc = self.spec, self.lcs[d]
         C = bb.shape[0]
-        if spec.demod == "fm":
-            demod_state, audio, info = fm_demod(
-                state["demod"], bb, bb_power, n0, params["demod"],
-                samprate=spec.samprate, blocktime=self.blocktime, ctcss=spec.ctcss)
-        elif spec.demod == "wfm":
-            demod_state, audio, info = wfm_demod(
-                state["demod"], bb, bb_power, n0, params["demod"], self.wfm_geo, lc["wfm"])
-        elif spec.demod == "spectrum":
-            demod_state, pwr = spectrum_accumulate(state["demod"], bb, self.spectrum_geo,
-                                                   lc["spectrum"], frames)
-            audio = torch.zeros((C, 0), dtype=torch.float32, device=bb.device)
-            info = {"bin_data": pwr}
+        new_dc = {"acc_q32": None, "n0": n0,
+                  "warmup": torch.clamp(state["dc"]["warmup"] - 1, min=0)}
+        if self.fused_tail:
+            # fine tune to muted audio in one kernel (its CPU path: the chain)
+            new_dc["acc_q32"], bb_power, demod_state, audio, info = cuda_linear_tail(
+                bb, state["dc"]["acc_q32"], params["inc_q32"], params["adj_q32"], n0,
+                state["demod"], params["demod"], samprate=spec.samprate,
+                blocktime=self.blocktime)
         else:
-            demod_state, audio, info = linear_demod(
-                state["demod"], bb, bb_power, n0, params["demod"],
-                samprate=spec.samprate, blocktime=self.blocktime,
-                enable_pll=spec.enable_pll, envelope=spec.envelope, stereo=spec.stereo)
+            bb, new_dc["acc_q32"] = fine_tune(bb, state["dc"]["acc_q32"], params["inc_q32"],
+                                              params["adj_q32"])
+            if self.f2_N:
+                # filter2 cascade (radio.c:1543-1554): a second overlap-save
+                # stage at the output rate, exact passband edges
+                buf = torch.cat([state["dc"]["tail2"], bb], dim=1)  # [C, f2_N]
+                new_dc["tail2"] = buf[:, self.f2_L:]
+                fd = torch.fft.fft(buf) * params["responses2"]
+                if self.spec.isb:
+                    fd = isb_unpack(fd)  # LSB/USB -> I/Q (filter.c:862-876)
+                bb = torch.fft.ifft(fd)[:, self.f2_N - self.olen:]
+            bb_power = (bb.real * bb.real + bb.imag * bb.imag).mean(-1)
+            if spec.demod == "fm":
+                demod_state, audio, info = fm_demod(
+                    state["demod"], bb, bb_power, n0, params["demod"],
+                    samprate=spec.samprate, blocktime=self.blocktime, ctcss=spec.ctcss)
+            elif spec.demod == "wfm":
+                demod_state, audio, info = wfm_demod(
+                    state["demod"], bb, bb_power, n0, params["demod"], self.wfm_geo, lc["wfm"])
+            elif spec.demod == "spectrum":
+                demod_state, pwr = spectrum_accumulate(state["demod"], bb, self.spectrum_geo,
+                                                       lc["spectrum"], frames)
+                audio = torch.zeros((C, 0), dtype=torch.float32, device=bb.device)
+                info = {"bin_data": pwr}
+            else:
+                demod_state, audio, info = linear_demod(
+                    state["demod"], bb, bb_power, n0, params["demod"],
+                    samprate=spec.samprate, blocktime=self.blocktime,
+                    enable_pll=spec.enable_pll, envelope=spec.envelope, stereo=spec.stereo)
         info["baseband_power"] = bb_power
         info["n0"] = n0
         if compact and spec.egress_slots and audio.shape[1] > 0 and "send" in info:

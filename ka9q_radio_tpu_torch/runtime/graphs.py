@@ -47,9 +47,13 @@ How it keeps the contract:
     (cuFFT plans, the kernels' first loads), in capture_error_mode
     "thread_local": Radiod's restock worker captures a grown engine's graphs
     in its own thread while the loop dispatches the old engine's. Each
-    graph keeps a private memory pool. A capture that fails raises, naming
-    the last torch call it entered; no dispatch falls back to the eager
-    step.
+    graph keeps a private memory pool. Python's cyclic garbage collector
+    is held off while any capture is under way (_gc_held): a collection
+    there finalizes unreachable objects, and freeing a dropped graph, its
+    pool or pinned host memory inside a capture invalidates it
+    (cudaErrorStreamCaptureInvalidated; seen when daemons are built one
+    after another in a process). A capture that fails raises, naming the
+    last torch call it entered; no dispatch falls back to the eager step.
 
 emulate=True runs the static-buffer body without a graph (on the CPU, for
 the tests): a key's first dispatch keeps its outputs, and later dispatches
@@ -75,7 +79,10 @@ GraphStep refuses it.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 import sys
+import threading
 import time
 
 import numpy as np
@@ -146,6 +153,31 @@ def _own(v):
         return Sharded([None if t is None else t.clone(memory_format=torch.contiguous_format)
                         for t in v.shards], v.dim, v.mesh)
     return v.clone(memory_format=torch.contiguous_format) if torch.is_tensor(v) else v
+
+
+# captures under way in the process, and whether the cyclic GC was on
+# before the first of them (_gc_held)
+_gc_lock = threading.Lock()
+_gc_hold = {"captures": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def _gc_held():
+    """No cyclic garbage collection while the block runs, nor while another
+    thread's capture is under way; the collector is turned back on after
+    the last one ends if it was on before the first."""
+    with _gc_lock:
+        if _gc_hold["captures"] == 0:
+            _gc_hold["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_hold["captures"] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_hold["captures"] -= 1
+            if _gc_hold["captures"] == 0 and _gc_hold["was_enabled"]:
+                gc.enable()
 
 
 def _copy_in(s, v) -> None:
@@ -405,7 +437,7 @@ class GraphStep:
                 # first loads happen outside the capture
                 with _cc.recording():
                     self.eager(self._state(host), params, self.input_buffer())
-                with _cc.recording() as launches:
+                with _cc.recording() as launches, _gc_held():
                     graph.capture_begin(capture_error_mode="thread_local")
                     try:
                         with last:

@@ -2238,6 +2238,16 @@ class Radiod:
         channels the big native edges carried instead."""
         return dict(self._emission)
 
+    def tail_counts(self) -> dict:
+        """The linear demodulators' tails since construction: the blocks
+        emitted, and the channel-blocks of the current engine's linear
+        groups in them and of those its groups run as the linear_tail
+        kernel (`_Group.fused_tail`, decided once a group)."""
+        blocks = self._emission["blocks"]
+        lin = [g for g in self.engine.groups.values() if g.spec.demod == "linear"]
+        return {"blocks": blocks, "linear_rows": blocks * sum(g.C for g in lin),
+                "fused_rows": blocks * sum(g.C for g in lin if g.fused_tail)}
+
     def graph_stats(self) -> dict:
         """How dispatches ran on the card (GraphStep.graph_stats of the
         current engine, a mesh's included), and the totals of the engines

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (the
-channelizer, the N0 estimator, and the PLL and Goertzel recurrences), and the
-small slices on CUDA against the same slices on the CPU.
+channelizer, the N0 estimator, the PLL and Goertzel recurrences and the
+linear tail), and the small slices on CUDA against the same slices on the
+CPU.
 
 These need an NVIDIA GPU with the CUDA toolkit (the kernels build with nvcc
 at first use); elsewhere they skip. On such a host:
@@ -157,7 +158,8 @@ def test_small_slice_on_card_matches_cpu(cuda):
         sc, oc = ec.step(sc, pc, torch.from_numpy(x))
         a_g, a_c = og["hf"]["audio"].cpu(), oc["hf"]["audio"]
         assert float((a_g - a_c).abs().max()) < 5e-4 * float(a_c.abs().max())
-    assert tcc.launches == {"channelize": 6, "noise_est": 3, "pll_scan": 0, "goertzel": 0}
+    assert tcc.launches == {"channelize": 6, "noise_est": 3, "pll_scan": 0, "goertzel": 0,
+                            "linear_tail": 6}
 
 
 _DAEMON_CONF = """
@@ -737,10 +739,11 @@ def test_mesh_graph_replay_equals_eager_step(cuda, D, time_shards):
 def test_example_daemon_captures_repeat(cuda, tmp_path):
     """examples/radiod@hf-generic.conf's daemon (four groups, an NBFM one
     among them) built 60 times on the card, each capturing its graphs at
-    init and dispatching a block: every capture goes through. Once, in a
-    whole run of chip_smoke.py, the capture of this daemon's first branch
-    was invalidated (cudaErrorStreamCaptureInvalidated at fm_demod's first
-    reduction), cause unknown; this repeats the construction alone."""
+    init and dispatching a block: every capture goes through. The capture
+    of this daemon's first branch was invalidated now and then
+    (cudaErrorStreamCaptureInvalidated) when a full cyclic collection ran
+    inside it and finalized the daemons built before; GraphStep holds the
+    collector off while it captures (runtime/graphs.py _gc_held)."""
     import sys
     from pathlib import Path
 
@@ -783,3 +786,279 @@ def test_graph_capture_that_cannot_work_raises(cuda):
     st, out = GraphStep(eng)(st, p, blocks(1)[0])
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out["lin"]["audio"]).all())
+
+
+# -- the linear tail (csrc/linear_tail.cu) --------------------------------------
+_AGC_BRANCHES = ("peak", "strong", "noise", "hang", "recover")
+
+
+def _tail_rows(C: int, N: int, device, seed: int) -> tuple:
+    """Mixed rows of a linear tail's inputs: tones of 1e-3 to 1 with noise,
+    one row in five with a 6x burst in one 2 ms sub-block; each row's gain,
+    N0 and hang drawn so that every AGC branch, squelch state and
+    transition occurs; the AGC, the CW shift and the SNR squelch each on
+    about half the rows. Returns (bb, acc, inc, adj, n0, state, params) on
+    device."""
+    from ka9q_radio_tpu_torch.models.linear import linear_init
+
+    rng = np.random.default_rng(seed)
+    amp = 10.0 ** rng.uniform(-3, 0, (C, 1))
+    t = np.arange(N)
+    bb = amp * np.exp(1j * (rng.uniform(0, 2 * np.pi, (C, 1)) + rng.uniform(-1, 1, (C, 1)) * t))
+    bb += 0.1 * amp * (rng.standard_normal((C, N)) + 1j * rng.standard_normal((C, N)))
+    burst = rng.random(C) < 0.2
+    s0 = rng.integers(0, N // 24, C) * 24
+    for c in np.nonzero(burst)[0]:
+        bb[c, s0[c]:s0[c] + 24] *= 6.0
+    headroom, threshold, bw = np.float32(0.178), np.float32(0.178), np.float32(2950.0)
+    g_rel = 10.0 ** rng.uniform(-1.5, 0.7, C)  # gain x amplitude over headroom
+    gain = g_rel * headroom / amp[:, 0]
+    bn_rel = 10.0 ** rng.uniform(-1.2, 1.2, C)  # noise amplitude x gain over threshold x headroom
+    n0 = (bn_rel * threshold * headroom / gain) ** 2 / bw
+    i32 = lambda n: rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)  # noqa: E731
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    i = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)  # noqa: E731
+    b = lambda a: torch.as_tensor(np.asarray(a, bool), device=device)  # noqa: E731
+    st = linear_init(C, device=device)
+    st["agc"] = {"gain": f(gain), "hangcount": i(np.where(rng.random(C) < 0.5, 0,
+                                                          rng.integers(1, 30_000, C)))}
+    st["shift_acc"], st["am_dc"] = i(i32(C)), f(rng.uniform(-1, 1, C))
+    st["squelch_state"], st["squelch_open"] = i(rng.integers(0, 7, C)), b(rng.random(C) < 0.5)
+    params = {"agc_enable": b(rng.random(C) < 0.6), "headroom": f(np.full(C, headroom)),
+              "hangtime_samples": i(np.full(C, 13_200)),
+              "recovery_per_sample": f(np.full(C, 1.00048)),
+              "threshold": f(np.full(C, threshold)), "bandwidth": f(np.full(C, bw)),
+              "manual_gain": f(10.0 ** rng.uniform(0, 3, C)),
+              "shift_inc_q32": i(np.where(rng.random(C) < 0.5, 0, i32(C))),
+              "squelch_open": f(np.full(C, 6.31)), "squelch_close": f(np.full(C, 5.01)),
+              "squelch_tail": i(rng.integers(0, 3, C)),
+              "snr_squelch_enable": b(rng.random(C) < 0.5)}
+    return (torch.as_tensor(bb.astype(np.complex64), device=device), i(i32(C)), i(i32(C)),
+            i(i32(C)), f(n0), st, params)
+
+
+def _tail_decisions(bb, acc, inc, adj, n0, st, p, blocktime: float = 0.02) -> dict:
+    """The plain chain's AGC branch (-1 with the AGC off) and squelch inputs
+    of each row, whether any of its decisions lies within 1e-4 of its
+    threshold (a knife edge, where float32 sums in another order may go
+    either way), and on the strong and noisy branches its gain_change (the
+    block's N-th root, agc_block's gc_strong or gc_noise; NaN elsewhere)."""
+    from ka9q_radio_tpu_torch.ops.filterbank import fine_tune
+    from ka9q_radio_tpu_torch.ops.osc import phase_ramp_q32
+
+    N = bb.shape[1]
+    x, _ = fine_tune(bb, acc, inc, adj)
+    bb_power = (x.real * x.real + x.imag * x.imag).mean(-1)
+    ramp, _ = phase_ramp_q32(st["shift_acc"], p["shift_inc_q32"], N)
+    x = torch.where((p["shift_inc_q32"] != 0)[:, None], x * ramp, x)
+    sps = int(round(N * 0.002 / blocktime))
+    pw = (x.real * x.real + x.imag * x.imag)[:, : (N // sps) * sps]
+    peak = torch.sqrt(pw.reshape(len(pw), -1, sps).mean(-1).amax(-1))
+    g, h, t = st["agc"]["gain"], p["headroom"], p["threshold"]
+    bn = torch.sqrt(p["bandwidth"] * torch.clamp(n0, min=0.0))
+    ratios = [peak * g / (1.4142135 * h), torch.sqrt(bb_power) * g / h, bn * g / (t * h)]
+    over = [r > 1 for r in ratios]
+    branch = torch.where(over[0], 0, torch.where(over[1], 1, torch.where(
+        over[2], 2, torch.where(st["agc"]["hangcount"] > 0, 3, 4))))
+    branch = torch.where(p["agc_enable"], branch, -1)
+    inv_n, eps = float(np.float32(1.0 / N)), float(np.float32(1e-30))
+    gc_strong = torch.pow(torch.clamp(h / (torch.sqrt(bb_power) * g + eps), min=eps), inv_n)
+    gc_noise = torch.pow(torch.clamp(t * h / (bn * g + eps), min=eps), inv_n)
+    gc = torch.where(branch == 1, gc_strong, torch.where(branch == 2, gc_noise, float("nan")))
+    edge = torch.zeros_like(p["agc_enable"])
+    for r in ratios:
+        edge |= p["agc_enable"] & ((r - 1).abs() < 1e-4)
+    snr = bb_power / torch.clamp(n0 * p["bandwidth"], min=1e-30) - 1.0
+    for thr in (p["squelch_open"], p["squelch_close"]):
+        edge |= p["snr_squelch_enable"] & ((snr / thr - 1).abs() < 1e-4)
+    return {"branch": branch.cpu().numpy(), "edge": edge.cpu().numpy(),
+            "snr": snr.cpu().numpy(), "gc": gc}
+
+
+def _tail_against_plain(args, blocktime: float = 0.02, samprate: int = 12_000) -> dict:
+    """The kernel and its plain version on the same inputs on the card,
+    compared: audio within 1e-5 of the plain row's peak, the NCO words
+    equal, the powers, the SNR's ratio and gain within 1e-5, every
+    decision equal, on the rows off the knife edges (where either branch is
+    accepted); a row whose gain_change rounds to the neighbouring float32
+    is held to the chain's outputs on that neighbour. Returns the plain
+    chain's decisions (_tail_decisions)."""
+    from ka9q_radio_tpu_torch.ops.cuda_tail import cuda_linear_tail, linear_tail_plain
+
+    kw = dict(samprate=samprate, blocktime=blocktime)
+    n = tcc.launches["linear_tail"]
+    acc_k, pw_k, st_k, audio_k, info_k = cuda_linear_tail(*args, **kw)
+    acc_p, pw_p, st_p, audio_p, info_p = linear_tail_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tcc.launches["linear_tail"] == n + 1
+    dec = _tail_decisions(*args, blocktime=blocktime)
+    off = torch.as_tensor(~dec["edge"], device=audio_k.device)
+    assert torch.equal(acc_k, acc_p) and torch.equal(st_k["shift_acc"], st_p["shift_acc"])
+    for tree_k, tree_p in ((st_k, st_p), (info_k, info_p)):
+        assert list(tree_k) == list(tree_p)
+        for k in tree_p:
+            a, b = tree_k[k], tree_p[k]
+            if isinstance(b, dict):
+                assert list(a) == list(b), k
+                continue
+            assert a.shape == b.shape and a.dtype == b.dtype, k
+    torch.testing.assert_close(pw_k[off], pw_p[off], rtol=1e-5, atol=0)
+    # audio within 1e-5 of the row's peak, output_power and the new gain
+    # within 1e-5. The strong and noisy branches raise gain_change, a
+    # rounded N-th root, to the i-th power along the ramp and to the N-th
+    # for the new gain: where the kernel's root rounds to the neighbouring
+    # float32 (its bb_power summed in another order), that one step (6e-8)
+    # grows N-fold (1.4e-5 at N 240). Such a row is held to the chain's
+    # outputs with that neighbour in place of gain_change, and at most one
+    # row in 1,000 may be one.
+    g0, gc, N = args[5]["agc"]["gain"], dec["gc"], audio_p.shape[1]
+    i = torch.arange(N, dtype=torch.float32, device=audio_p.device)
+    ramp_p = g0[:, None] * torch.exp(i[None, :] * torch.log(gc)[:, None])
+    peak = audio_p.abs().amax(-1, keepdim=True)
+
+    def rows_ok(audio, opow, gain):
+        return (((audio_k - audio).abs() <= 1e-5 * peak).all(-1)
+                & ((info_k["output_power"] - opow).abs() <= 1e-5 * opow.abs())
+                & ((st_k["agc"]["gain"] - gain).abs() <= 1e-5 * gain.abs()))
+
+    ok = rows_ok(audio_p, info_p["output_power"], st_p["agc"]["gain"])
+    on_step = torch.zeros_like(ok)
+    for to in (0.0, 2.0):
+        nb = torch.nextafter(gc, torch.full_like(gc, to))
+        ramp = g0[:, None] * torch.exp(i[None, :] * torch.log(nb)[:, None])
+        audio = (audio_p.double() * ramp.double() / ramp_p.double()).float()
+        on_step |= ~ok & torch.isfinite(gc) & rows_ok(audio, 2.0 * (audio * audio).mean(-1),
+                                                      g0 * torch.pow(nb, float(N)))
+    assert bool((ok | on_step)[off].all())
+    assert int(on_step.sum()) <= max(1, len(ok) // 1000), int(on_step.sum())
+    # the SNR is a power ratio less 1: within 1e-5 of the ratio
+    fin = off & torch.isfinite(info_p["snr"])
+    sk, sp = info_k["snr"][fin], info_p["snr"][fin]
+    assert bool(((sk - sp).abs() <= 1e-5 * (sp.abs() + 1)).all())
+    assert torch.equal(torch.isinf(info_k["snr"]), torch.isinf(info_p["snr"]))
+    for a, b in ((st_k["agc"]["hangcount"], st_p["agc"]["hangcount"]),
+                 (st_k["squelch_state"], st_p["squelch_state"]),
+                 (st_k["squelch_open"], st_p["squelch_open"]), (st_k["am_dc"], st_p["am_dc"]),
+                 (info_k["send"], info_p["send"]), (info_k["pll_lock"], info_p["pll_lock"])):
+        assert torch.equal(a[off], b[off])
+    dec["open_before"] = args[5]["squelch_open"].cpu().numpy()
+    dec["open_after"] = st_p["squelch_open"].cpu().numpy()
+    dec["state_after"] = st_p["squelch_state"].cpu().numpy()
+    return dec
+
+
+def test_linear_tail_kernel_mixed_rows(cuda):
+    """hf-farm's shapes (C 32,728 x N 240): the kernel against the plain
+    chain on the card over rows that mix the AGC on and off, the CW shift on
+    and off and the SNR squelch on and off, from every squelch state. Each
+    of the five AGC branches (peak clamp, strong, noise, hang, recovery)
+    and each squelch transition is reached, as asserted. Audio within 1e-5
+    of the chain's row peak, acc_q32 and shift_acc equal, decisions equal
+    off the thresholds: on an AGC or squelch knife edge (a ratio within
+    1e-4 of its threshold) either branch is accepted, as the AGC parity
+    tests accept either (test_agc_thresholds_same_branch)."""
+    args = _tail_rows(32_728, 240, cuda, seed=25)
+    dec = _tail_against_plain(args)
+    sq_en = args[6]["snr_squelch_enable"].cpu().numpy()
+    agc_on = args[6]["agc_enable"].cpu().numpy()
+    shift_on = (args[6]["shift_inc_q32"] != 0).cpu().numpy()
+    off = ~dec["edge"]
+    branch = dec["branch"][off]
+    counts = {name: int((branch == k).sum()) for k, name in enumerate(_AGC_BRANCHES)}
+    counts["agc_off"] = int((branch == -1).sum())
+    assert min(counts.values()) >= 20, counts
+    for flags in (sq_en, agc_on, shift_on):
+        assert 0.2 < flags.mean() < 0.8
+    before = args[5]["squelch_state"].cpu().numpy()
+    assert set(before[sq_en]) == set(range(7))
+    o0, o1, s1, snr = dec["open_before"], dec["open_after"], dec["state_after"], dec["snr"]
+    on = sq_en & off
+    reached = {"opens": on & ~o0 & o1, "closes": on & o0 & ~o1, "stays open": on & o0 & o1,
+               "tail counts down": on & (s1 == before - 1) & (s1 > 0),
+               "between the thresholds": on & (snr < 6.31) & (snr >= 5.01),
+               "no squelch": ~sq_en & o1 & (s1 == args[6]["squelch_tail"].cpu().numpy() + 4)}
+    assert all(int(v.sum()) >= 5 for v in reached.values()), {k: int(v.sum())
+                                                             for k, v in reached.items()}
+    assert dec["edge"].mean() < 0.01
+
+
+@pytest.mark.parametrize("C,agc", [(12, False), (10, True), (8, True)], ids=["wspr", "ft8", "ft4"])
+def test_linear_tail_kernel_hf_generic(cuda, C, agc):
+    """hf-generic's USB groups (WSPR x12 with the AGC off at 60 dB, FT8 x10
+    and FT4 x8 with it on; N 240): the kernel against the plain chain on the
+    card, three blocks carried, with the checks of the mixed-rows test."""
+    args = list(_tail_rows(C, 240, cuda, seed=C))
+    args[6]["agc_enable"].fill_(agc)
+    args[6]["manual_gain"].fill_(1000.0)
+    args[6]["snr_squelch_enable"].fill_(False)
+    from ka9q_radio_tpu_torch.ops.cuda_tail import linear_tail_plain
+
+    for _ in range(3):
+        _tail_against_plain(tuple(args))
+        acc, _, st, _, _ = linear_tail_plain(*args, samprate=12_000, blocktime=0.02)
+        args[1], args[5] = acc, st
+
+
+@pytest.mark.parametrize("N,blocktime", [(96, 0.008), (33, 0.02), (960, 0.02), (4800, 0.02),
+                                         (8000, 0.02)])
+def test_linear_tail_kernel_geometries(cuda, N, blocktime):
+    """Other row lengths: short (96 at 8 ms blocks; 33, odd) and long (960:
+    48 kHz; 4,800: 240 kHz, one row a CTA; 8,000: 400 kHz, a row past 48
+    KB of shared memory), C 300."""
+    _tail_against_plain(_tail_rows(300, N, cuda, seed=N), blocktime=blocktime,
+                        samprate=int(round(N / blocktime)))
+
+
+def test_linear_tail_kernel_row_stride(cuda):
+    """The per-element channelizer's baseband, a column slice of its inverse
+    FFT (rows 300 samples apart, 240 read): the kernel against the plain
+    chain on the same slice."""
+    bb, *rest = _tail_rows(64, 300, cuda, seed=7)
+    _tail_against_plain((bb[:, 60:], *rest))
+
+
+def test_linear_tail_wrapper_refuses_bad_tensors(cuda):
+    from ka9q_radio_tpu_torch.ops.cuda_tail import cuda_linear_tail
+
+    bb, acc, inc, adj, n0, st, p = _tail_rows(16, 240, cuda, seed=1)
+    kw = dict(samprate=12_000, blocktime=0.02)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_linear_tail(bb, acc.long(), inc, adj, n0, st, p, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_linear_tail(bb, acc, inc, adj, n0[:8], st, p, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_linear_tail(bb.T.contiguous().T, acc, inc, adj, n0, st, p, **kw)
+    with pytest.raises(ValueError, match="expected cuda"):
+        cuda_linear_tail(bb, acc, inc, adj, n0.cpu(), st, p, **kw)
+
+
+def test_linear_tail_in_graph_replay(cuda):
+    """bench.py's rx888 (1,000 usb channels with SNR squelch, the sweep)
+    through GraphStep and through its eager step, 12 blocks from the same
+    state: outputs and state bit for bit, and linear_tail launched once a
+    block each way (the replays counted as the eager step's launches)."""
+    from ka9q_radio_tpu_torch.runtime.graphs import GraphStep
+
+    eng, blocks = _graph_engine("rx888", cuda)
+    assert eng.groups["hf"].fused_tail and not eng.groups["sweep"].fused_tail
+    gs = GraphStep(eng, 0)
+    p = eng.init_params()
+    se, sg = eng.init_state(), eng.init_state()
+    xs = blocks(12)
+    got = {}
+    for name in ("eager", "graph"):
+        tcc.reset_launches()
+        for b in range(12):
+            if name == "eager":
+                se, oe = gs.eager(se, p, xs[b])
+                got.setdefault("outs", []).append(oe)
+            else:
+                sg, og = gs(sg, p, xs[b])
+                torch.cuda.synchronize()
+                _trees_equal(og, got["outs"][b], f"block {b} out")
+        torch.cuda.synchronize()
+        got[name] = tcc.launches["linear_tail"]
+    _trees_equal({k: v for k, v in sg.items() if k != "host"},
+                 {k: v for k, v in se.items() if k != "host"}, "state")
+    assert got["eager"] == got["graph"] == 12, got
+    assert gs.graph_stats()["dispatch"] == "cuda graph"

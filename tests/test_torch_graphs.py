@@ -646,3 +646,37 @@ def test_graph_step_keeps_a_mesh_over_distinct_cards_eager(monkeypatch, capsys):
     assert stats["replays"] == 0 and not stats["graphs"]
     assert stats["eager_blocks"] == {
         "mesh over distinct cards (one capture across cards is unverified)": 3}
+
+
+def test_gc_held_while_captures_run():
+    """GraphStep's captures hold off Python's cyclic GC (a collection inside
+    a capture may free a dropped graph, its pool or pinned host memory, and
+    that invalidates the capture): off inside, nested or overlapping holds
+    keep it off until the last ends, then it is as it was before the first."""
+    import gc
+    import threading
+
+    from ka9q_radio_tpu_torch.runtime.graphs import _gc_held
+
+    was = gc.isenabled()
+    try:
+        for before in (True, False):
+            (gc.enable if before else gc.disable)()
+            with _gc_held():
+                assert not gc.isenabled()
+                inner_started, release = threading.Event(), threading.Event()
+
+                def other():
+                    with _gc_held():
+                        inner_started.set()
+                        release.wait(5)
+
+                t = threading.Thread(target=other)
+                t.start()
+                assert inner_started.wait(5)
+            assert not gc.isenabled()  # the other thread's hold still runs
+            release.set()
+            t.join(5)
+            assert gc.isenabled() == before
+    finally:
+        (gc.enable if was else gc.disable)()
