@@ -16,8 +16,9 @@
 Where the JAX engine branches on device values with lax.cond (the spectrum
 `armed` gate; the N0 cadence `warm | jobnum % noise_every == 0`), this
 engine decides on host mirrors (the `host` ints of the state, the group's
-host copy of `armed`), so no block reads a device value back to the host.
-The state tensors keep the same values as the JAX engine's.
+host copy of `armed`), so no block reads a device value back to the host:
+_Group.branch alone decides (the Engine docstring says how). The state
+tensors keep the same values as the JAX engine's.
 
 Per-block per-group pipeline (downconvert(), radio.c:1451-1562):
   master FFT (torch.fft, cuFFT on the card; B spectra for B inputs)
@@ -116,6 +117,7 @@ DEFAULTS = dict(
 
 _COMPOSITE_SAMPRATE = 384_000  # WFM composite rate (wfm.c:22)
 _IDFT_BYTES = 32 << 20  # above this [S, olen] constant, the FFT-IDFT channelizer
+_SPUR_ALPHA = float(np.float32(0.01))  # the spur trackers' one-pole, ~10 s (filter.c:447)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,17 +306,18 @@ class _Group:
             raise ValueError(
                 f"group {spec.name}: wideband spectrum reads the raw "
                 "A/D block — its channels cannot span inputs")
+        self.sgeo = None  # a spectrum group's geometry (wide_geo or spectrum_geo)
         if self.spectrum_wide:
             # every process computes the whole sweep from the replicated raw
             # block, so its leaves replicate (no collective in its step);
             # its outputs are still the process's rows (self.rows)
             self.split = False
-            self.wide_geo = wide_geometry(
+            self.sgeo = self.wide_geo = wide_geometry(
                 self.fs_in, master.L, master.real, spec.bin_bw, spec.spectrum_window,
                 spec.spectrum_window_param, spec.fft_avg, spec.spectrum_overlap)
             self.wide_consts = wide_constants(self.wide_geo, device)
         elif spec.demod == "spectrum":
-            self.spectrum_geo = spectrum_geometry(
+            self.sgeo = self.spectrum_geo = spectrum_geometry(
                 r, self.olen, spec.bin_bw, spec.bin_count, spec.spectrum_window,
                 spec.spectrum_window_param, spec.fft_avg, spec.spectrum_overlap)
             self.spectrum_consts = spectrum_constants(self.spectrum_geo, device)
@@ -628,116 +631,116 @@ class _Group:
         return cuda_noise_est(F, params["shifts"], self.noise_bins, m.real, m.N, self.fs_in,
                               inputs=self.lcs[d]["inputs"])[0]
 
-    def _cadence(self, host: dict, jobnum: int) -> tuple[bool, bool]:
-        """(warm, due) of one block from the host mirrors: the master's
-        warm-up countdown, and whether N0 re-estimates on this block."""
-        warm = host["warmup"] > 0
-        return warm, self.noise_every == 1 or warm or jobnum % self.noise_every == 0
+    def branch(self, host: dict, jobnum: int) -> tuple[str, "str | None"]:
+        """This group's branch on one block from its host mirrors (host:
+        {"warmup", "frames"}; jobnum: the block counter), as a letter: i a
+        disarmed spectrum (computes nothing), w a wide spectrum, W the
+        master's warm-up (N0 re-seeds), N N0 due, . N0 not due; beside it
+        the reason the block cannot be graphed, or None (a spectrum group's
+        first fft_avg frames weigh each by 1/(n+1) from the host's count,
+        models/spectrum.py _fold_frames). The one place the branch is
+        worked out: step dispatches on it, Engine.branch keys graphs by it."""
+        why = None
+        if self.sgeo is not None:
+            if not self.host["armed"]:
+                return "i", None
+            if host["frames"] < self.sgeo.fft_avg:
+                why = f"{self.spec.name}: spectrum warm-up (frame weights 1/(n+1))"
+            if self.spectrum_wide:
+                return "w", why
+        if host["warmup"] > 0:
+            return "W", why
+        return "N" if jobnum % self.noise_every == 0 else ".", why
 
-    def _idle(self, device, lead: tuple = (), C: "int | None" = None):
-        """A disarmed spectrum group's outputs: zero bins and power (of C
-        channel rows, default all)."""
-        C = self.C if C is None else C
-        nb = self.spec.bin_count if self.spectrum_wide else self.spectrum_geo.bin_count
-        zeros = torch.zeros(lead + (C,), dtype=torch.float32, device=device)
-        return (torch.zeros(lead + (C, 0), dtype=torch.float32, device=device),
-                {"bin_data": torch.zeros(lead + (C, nb), dtype=torch.float32, device=device),
-                 "baseband_power": zeros})
+    def host_after(self, host: dict) -> dict:
+        """This group's host mirrors after one block, the one rule they
+        advance by: a disarmed spectrum group keeps them, a wide one counts
+        its frames, the rest count down the warm-up (and a narrowband
+        spectrum its frames)."""
+        if self.sgeo is not None and not self.host["armed"]:
+            return host
+        new = dict(host) if self.spectrum_wide else dict(host, warmup=max(host["warmup"] - 1, 0))
+        if self.sgeo is not None:
+            new["frames"] = host["frames"] + self.sgeo.frames_per_block
+        return new
 
-    def _wide(self, state, params, block, host, d: int = 0):
+    def _wide(self, state, params, block, frames: int, d: int = 0):
         """A wide spectrum group's block: the raw block's windowed FFTs."""
         demod_state, pwr = wide_accumulate(state["demod"], block, self.wide_geo,
-                                           self.lcs[d]["wide"], host["frames"])
+                                           self.lcs[d]["wide"], frames)
         bins = wide_extract(pwr, params["shifts"], self.master.N, self.wide_geo,
                             self.spec.bin_count)
         info = {"bin_data": bins, "baseband_power": bins.sum(-1),
                 "n0": torch.zeros((self.C,), dtype=torch.float32, device=block.device)}
         return ({"dc": state["dc"], "demod": demod_state},
-                torch.zeros((self.C, 0), dtype=torch.float32, device=block.device), info,
-                self.host_after(host))
+                torch.zeros((self.C, 0), dtype=torch.float32, device=block.device), info)
 
-    def _next_host(self, host: dict) -> dict:
-        new_host = dict(host, warmup=max(host["warmup"] - 1, 0))
-        if self.spec.demod == "spectrum":
-            new_host["frames"] = host["frames"] + self.spectrum_geo.frames_per_block
-        return new_host
-
-    def host_after(self, host: dict) -> dict:
-        """This group's host mirrors after one step(), without running it: a
-        disarmed spectrum group keeps them, a wide one counts its frames,
-        the rest count down the warm-up (and a narrowband spectrum's
-        frames)."""
-        if self.spec.demod == "spectrum" and not self.host["armed"]:
-            return host
-        if self.spectrum_wide:
-            return dict(host, frames=host["frames"] + self.wide_geo.frames_per_block)
-        return self._next_host(host)
-
-    def step(self, state, params, F, block, jobnum: int, host: dict):
-        """One block for this group. jobnum: host block counter (before this
-        block); host: this group's host mirrors {"warmup", "frames"}.
-        Returns (new_state, audio, info, new_host)."""
-        if self.spec.demod == "spectrum" and not self.host["armed"]:
+    def step(self, state, params, letters: str, frames: list, blocks: list, chan,
+             stacked: bool = False):
+        """len(letters) consecutive blocks of this group, each on the branch
+        its letter names (branch()), in any placement. frames: the host's
+        frame count a block; blocks: the raw blocks (a wide spectrum's
+        input); chan(self, params, dues): the placement's (baseband, N0 or
+        None) lists, a block's (the tails then run block after block on the
+        first device) or, for a split group, a shard's (_split_tails).
+        stacked: outputs [len(letters), ...] (step_time). Returns
+        (new_state, audio, info), this process's rows on the engine's
+        device."""
+        mesh, rows, dev = self.mesh, self.rows, self.device
+        n = rows.stop - rows.start
+        lead = (len(letters),) if stacked else ()
+        if letters[0] == "i":
             # poll-gated: a disarmed spectrum group computes nothing
-            audio, info = self._idle(F.device)
-            info["n0"] = info["baseband_power"] if self.spectrum_wide else state["dc"]["n0"]
-            return state, audio, info, host
-        if self.spectrum_wide:
-            return self._wide(state, params, block, host)
-        bb = self._channelize(params, F)
-        warm, due = self._cadence(host, jobnum)
-        n0_est = self._noise_est(params, F) if due else None
-        new_state, audio, info = self._demod_tail(state, params, bb, n0_est, due, warm,
-                                                  host["frames"])
-        return new_state, audio, info, self._next_host(host)
-
-    def step_mesh(self, state, params, Ff, spec, block, jobnum: int, host: dict):
-        """One block of a group split over the mesh's channel axis.
-
-        Ff: each device's whole natural-order master spectrum (the one
-        all-gather of the block), read by kernels A and B on the device's
-        local C/D channel rows; spec: the block's DigitSpectrum, whose
-        gathers serve the per-element and beamforming channelizers and their
-        noise windows; block: the raw block on the first device (a wide
-        spectrum reads it). State and params are trees of Sharded leaves.
-        Returns (new_state, audio, info, new_host), the outputs of this
-        process's channel rows (self.rows: all of them on a mesh of one
-        process) on its first device; egress compaction packs those rows."""
-        mesh = self.mesh
-        D, dev0 = mesh.size, mesh.home
-        rows = self.rows
-        if self.spec.demod == "spectrum" and not self.host["armed"]:
-            audio, info = self._idle(dev0, C=rows.stop - rows.start)
-            info["n0"] = (info["baseband_power"] if self.spectrum_wide
-                          else state["dc"]["n0"].local_rows(dev0))
-            return state, audio, info, host
-        if self.spectrum_wide:
-            # reads the raw block: run once a process, on its first device,
-            # on its replicated state and params
-            h0 = mesh.local[0]
-            ns, audio, info, new_host = self._wide(local_tree(state, h0), local_tree(params, h0),
-                                                   block, host, h0)
+            nb = self.spec.bin_count if self.spectrum_wide else self.sgeo.bin_count
+            power = torch.zeros(lead + (n,), dtype=torch.float32, device=dev)
+            n0 = state["dc"]["n0"] if mesh is None else state["dc"]["n0"].local_rows(dev)
+            info = {"bin_data": torch.zeros(lead + (n, nb), dtype=torch.float32, device=dev),
+                    "baseband_power": power,
+                    "n0": power if self.spectrum_wide else n0.expand(lead + (n,))}
+            return state, torch.zeros(lead + (n, 0), dtype=torch.float32, device=dev), info
+        dues = [c != "." for c in letters]
+        if self.split:
+            return self._split_tails(state, params, letters[0], frames[0], *chan(self, params, dues))
+        h = 0 if mesh is None else mesh.local[0]  # the first device's shard
+        st, p = local_tree(state, h), local_tree(params, h)
+        if not self.spectrum_wide:
+            bb, n0 = chan(self, params, dues)
+        outs = []
+        for d, c in enumerate(letters):
+            if self.spectrum_wide:
+                st, audio, info = self._wide(st, p, blocks[d], frames[d], h)
+            else:
+                st, audio, info = self._demod_tail(st, p, bb[d], n0[d], dues[d], c == "W",
+                                                   frames[d], h)
+            outs.append((audio, info))
+        if stacked:
+            audio = torch.stack([o[0] for o in outs])
+            info = {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
+        if n < self.C:  # a wide group's rows of this process, on a mesh of several
             info = {k: v[rows] if v.dim() >= 1 and v.shape[0] == self.C else v
                     for k, v in info.items()}
-            return place_like(ns, state, mesh), audio[rows], info, new_host
-        warm, due = self._cadence(host, jobnum)
-        if self.tiled:
-            bb, n0 = self._chan_noise_mesh(params, Ff, due)
-        else:
-            bb, n0 = self._chan_noise_digit(params, spec, due)
+            audio = audio[rows]
+        return (st if mesh is None else place_like(st, state, mesh)), audio, info
+
+    def _split_tails(self, state, params, letter: str, frames: int, bb: list, n0: list):
+        """The tails of one block of a group split over the mesh's channel
+        axis, each shard on its own C/D rows of (bb, n0); the outputs of
+        this process's rows joined on its first device, where egress
+        compaction packs them."""
+        mesh, dev = self.mesh, self.device
         outs = each(mesh, lambda d, b, n: self._demod_tail(
-            local_tree(state, d), local_tree(params, d), b, n, due, warm, host["frames"], d,
-            compact=False), bb, n0)
+            local_tree(state, d), local_tree(params, d), b, n, letter != ".", letter == "W",
+            frames, d, compact=False), bb, n0)
         new_state = reassemble(each(mesh, lambda d, o: o[0], outs), state, mesh)
         mine = [outs[d] for d in mesh.local]
-        audio = torch.cat([o[1].to(dev0) for o in mine])
-        per = self.C // D
-        info = {k: (torch.cat([o[2][k].to(dev0) for o in mine])
-                    if v.dim() >= 1 and v.shape[0] == per else v.to(dev0))
+        audio = torch.cat([o[1].to(dev) for o in mine])
+        per = self.C // mesh.size
+        info = {k: (torch.cat([o[2][k].to(dev) for o in mine])
+                    if v.dim() >= 1 and v.shape[0] == per else v.to(dev))
                 for k, v in mine[0][2].items()}
         if self.spec.egress_slots and audio.shape[1] > 0 and "send" in info:
-            audio = self._compact(audio, info, rows.start)
-        return new_state, audio, info, self._next_host(host)
+            audio = self._compact(audio, info, self.rows.start)
+        return new_state, audio, info
 
     def _chan_noise_mesh(self, params, Ff: list, due: bool) -> tuple[list, list]:
         """Kernels A and B on each device's local C/D rows of its whole
@@ -768,61 +771,28 @@ class _Group:
         return bb, each(mesh, lambda d, x: estimate_noise(x, self.master.bins, self.fs_in),
                         e.shards)
 
-    def step_blocks(self, state, params, Fs: list, blocks: list, jobnum0: int, host: dict):
-        """D consecutive blocks of a time-sharded group (replicated over the
-        mesh): block d's channelizer and N0 estimate run on device d, on
-        its own master spectrum Fs[d] (kernels A and B, one launch each a
-        block); the stateful demodulator tails then run block after block
-        on the first device. Equals D step() calls. blocks: the raw blocks
-        on the first device (a wide spectrum reads them). Returns
-        (new_state, audio [D, ...], info [D, ...], new_host). On a mesh of
-        several processes each channelizes its own blocks, one all-gather
-        brings every block's baseband and N0 to each process's first
-        device, and every process runs all D tails (the state stays
-        replicated)."""
+    def _chan_noise_blocks(self, params, Fs: list, dues: list) -> tuple[list, list]:
+        """Kernels A and B of a time-sharded group (replicated over the
+        mesh): block d's on device d, on its own master spectrum Fs[d] (B
+        where dues[d]); (baseband, N0 or None) a block on this process's
+        first device. On a mesh of several processes each channelizes its
+        own blocks, and one all-gather brings every block's to each."""
         mesh = self.mesh
-        D, dev0 = mesh.size, mesh.home
-        if self.spec.demod == "spectrum" and not self.host["armed"]:
-            audio, info = self._idle(dev0, (D,))
-            info["n0"] = (info["baseband_power"] if self.spectrum_wide
-                          else state["dc"]["n0"].full(dev0).expand(D, self.C))
-            return state, audio, info, host
-        h0 = mesh.local[0]  # the tails run on this process's first device
-        st, p0 = local_tree(state, h0), local_tree(params, h0)
-        outs = []
-        if self.spectrum_wide:
-            for d in range(D):
-                st, audio, info, host = self._wide(st, p0, blocks[d], host, h0)
-                outs.append((audio, info))
-        else:
-            cad = []
-            h = host
-            for d in range(D):
-                cad.append(self._cadence(h, jobnum0 + d))
-                h = self._next_host(h)
-            lps = each(mesh, lambda d: local_tree(params, d))
-            bb = each(mesh, lambda d: self._channelize(lps[d], Fs[d], d))
-            n0 = each(mesh, lambda d: self._noise_est(lps[d], Fs[d], d) if cad[d][1] else None)
-            if mesh.multiproc:
-                def stacked(xs):  # every block's [C, ...] on this process's first device
-                    return all_gather(each(mesh, lambda d, x: x[None], xs), mesh, 0)[mesh.local[0]]
+        lps = each(mesh, lambda d: local_tree(params, d))
+        bb = each(mesh, lambda d: self._channelize(lps[d], Fs[d], d))
+        n0 = each(mesh, lambda d: self._noise_est(lps[d], Fs[d], d) if dues[d] else None)
+        if mesh.multiproc:
+            def stacked(xs):  # every block's [C, ...] on this process's first device
+                return all_gather(each(mesh, lambda d, x: x[None], xs), mesh, 0)[mesh.local[0]]
 
-                bb = list(stacked(bb))
-                # a block off its N0 cadence sends zeros that nothing reads
-                n0 = [n if cad[d][1] else None for d, n in enumerate(stacked(each(
-                    mesh, lambda d, n: torch.zeros((self.C,), dtype=torch.float32,
-                                                   device=mesh.devices[d]) if n is None else n,
-                    n0)))]
-            for d in range(D):
-                warm, due = cad[d]
-                st, audio, info = self._demod_tail(
-                    st, p0, bb[d].to(dev0), None if n0[d] is None else n0[d].to(dev0), due,
-                    warm, host["frames"], h0)
-                host = self._next_host(host)
-                outs.append((audio, info))
-        audio = torch.stack([o[0] for o in outs])
-        info = {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
-        return place_like(st, state, mesh), audio, info, host
+            bb = list(stacked(bb))
+            # a block off its N0 cadence sends zeros that nothing reads
+            n0 = [n if dues[d] else None for d, n in enumerate(stacked(each(
+                mesh, lambda d, n: torch.zeros((self.C,), dtype=torch.float32,
+                                               device=mesh.devices[d]) if n is None else n,
+                n0)))]
+        return ([b.to(self.device) for b in bb],
+                [None if n is None else n.to(self.device) for n in n0])
 
     def _demod_tail(self, state, params, bb, n0_est, due: bool, warm: bool, frames: int = 0,
                     d: int = 0, compact: bool = True):
@@ -927,6 +897,12 @@ class Engine:
     process's own rows on its first device). time_shards=D (with a mesh of
     D devices) instead runs D consecutive blocks a dispatch, one a device,
     through step_time. State and params are then trees of Sharded leaves.
+
+    Each group's branch on a block (disarmed or wide spectrum, the master's
+    warm-up, N0 due or not) is _Group.branch's letter: branch() spells a
+    dispatch's letters as its compiled graph's key (runtime/graphs.py), the
+    steps dispatch on the same letters (_step_groups), and the host mirrors
+    advance only by advance_host.
     """
 
     def __init__(self, samprate: float, groups: Sequence[GroupSpec], real: bool = True,
@@ -1029,6 +1005,12 @@ class Engine:
                                       self.noise_every, self.device, mesh=mesh, split=split,
                                       use_tiled=use_tiled)
                        for g in groups}
+        # blocks from a fresh state before the branches repeat on the N0
+        # cadence alone (GraphStep.prepare): the master's warm-up, then the
+        # longest spectrum frame warm-up
+        self.warmup_blocks = 2 + max((-(-g.sgeo.fft_avg // g.sgeo.frames_per_block)
+                                      for g in self.groups.values() if g.sgeo is not None),
+                                     default=0)
         # adaptive spur notches on master bins (radio.c:662-683,
         # filter.c:441-453): per spur, a slow complex one-pole tracks the
         # coherent bin value and subtracts it; DC always included
@@ -1081,11 +1063,39 @@ class Engine:
         return {n: g.params for n, g in self.groups.items()}
 
     def advance_host(self, host: dict) -> dict:
-        """The state's host mirrors after one step(), computed on the host
-        alone: what a compiled step (runtime/graphs.py) returns beside the
-        state its graph wrote."""
+        """The state's host mirrors after one block (_Group.host_after),
+        computed on the host alone: how every step advances them, and what
+        a compiled step (runtime/graphs.py) returns beside the state its
+        graph wrote."""
         return {"jobnum": host["jobnum"] + 1,
                 "groups": {n: g.host_after(host["groups"][n]) for n, g in self.groups.items()}}
+
+    def _walk(self, host: dict, blocks: int) -> tuple[list, list, "str | None"]:
+        """The host mirrors before each of `blocks` blocks from `host` and
+        after the last, each block's branch spelt a letter a group in the
+        engine's order (_Group.branch), and the first reason a block cannot
+        be graphed (None)."""
+        hosts, spelt, why = [host], [], None
+        for _ in range(blocks):
+            letters = ""
+            for n, g in self.groups.items():
+                c, w = g.branch(host["groups"][n], host["jobnum"])
+                letters += c
+                why = why or w
+            spelt.append(letters)
+            host = self.advance_host(host)
+            hosts.append(host)
+        return hosts, spelt, why
+
+    def branch(self, host: dict, blocks: int = 1) -> tuple:
+        """(key, None) for `blocks` blocks from the host mirrors `host`, or
+        (None, reason) where a block cannot be graphed. The key spells each
+        block's branch, a letter a group in the engine's order
+        (_Group.branch), "/" between blocks: the letters the steps dispatch
+        on, so a graph keyed by it holds the launches of the branch it
+        names."""
+        _, spelt, why = self._walk(host, blocks)
+        return (None, why) if why else ("/".join(spelt), None)
 
     def retune(self, params, group: str, idx: int, freq: float):
         """Retune one channel in place; returns params (nothing rebuilt)."""
@@ -1161,31 +1171,40 @@ class Engine:
             raise ValueError("a time-sharded engine runs D blocks a dispatch: use step_time")
         if self.mesh is not None:
             return self._step_mesh(state, params, block)
-        host = state["host"]
-        jobnum = host["jobnum"]
-        multi = self.n_inputs > 1
         mstate, F = self.master_step(state["master"], block)
-        spur_state = None
+        new_state = {"master": mstate}
         if self.spur_bins is not None:
             # F is this block's own tensor: notch it in place, every input
             vals = F.index_select(-1, self._spur_idx)
-            spur_state = state["spurs"] + float(np.float32(0.01)) * (vals - state["spurs"])
-            F.index_add_(-1, self._spur_idx, -spur_state)  # tracker ~10 s (filter.c:447)
-        new_groups, outputs, host_groups = {}, {}, {}
-        for name, g in self.groups.items():
-            # the whole F goes in; a wide spectrum reads its own input's block
-            blk = block[g.spec.input] if multi else block
-            gs, audio, info, host_groups[name] = g.step(
-                state["groups"][name], params[name], F, blk, jobnum, host["groups"][name])
-            new_groups[name] = gs
+            new_state["spurs"] = state["spurs"] + _SPUR_ALPHA * (vals - state["spurs"])
+            F.index_add_(-1, self._spur_idx, -new_state["spurs"])
+
+        def chan(g, p, dues):  # the whole F goes in
+            return [g._channelize(p, F)], [g._noise_est(p, F) if dues[0] else None]
+
+        return self._step_groups(state, params, [block], chan, new_state)
+
+    def _step_groups(self, state, params, blocks: list, chan, new_state: dict):
+        """The groups' part of step, _step_mesh and step_time over the blocks
+        ([L] or [B, L] each): every group through _Group.step on the
+        letters and frame counts of the host walk that keys a compiled
+        dispatch, with the placement's chan; the front-end powers; and
+        new_state completed with the groups' states and the advanced host
+        mirrors. Returns (new_state, outputs)."""
+        hosts, spelt, _ = self._walk(state["host"], len(blocks))
+        stacked = bool(self.time_shards)
+        groups, outputs = {}, {}
+        for i, (name, g) in enumerate(self.groups.items()):
+            groups[name], audio, info = g.step(
+                state["groups"][name], params[name], "".join(s[i] for s in spelt),
+                [h["groups"][name]["frames"] for h in hosts[:-1]],
+                [b[g.spec.input] for b in blocks] if self.n_inputs > 1 else blocks, chan, stacked)
             outputs[name] = {"audio": audio, "info": info}
         # front-end metrics (frontend->if_power smoothing, rx888.c contract):
-        # [B] per-input powers, [1] for one input
-        outputs["_frontend"] = {"if_power": self._frontend(block).reshape(-1)}
-        new_state = {"master": mstate, "groups": new_groups,
-                     "host": {"jobnum": jobnum + 1, "groups": host_groups}}
-        if spur_state is not None:
-            new_state["spurs"] = spur_state
+        # [B] per-input powers, [1] for one input; [D, ...] time-sharded
+        fe = [self._frontend(b).reshape(-1) for b in blocks]
+        outputs["_frontend"] = {"if_power": torch.stack(fe) if stacked else fe[0]}
+        new_state.update(groups=groups, host=hosts[-1])
         return new_state, outputs
 
     def _step_mesh(self, state, params, block):
@@ -1205,9 +1224,6 @@ class Engine:
         dev0 = mesh.home
         state = shard_engine_tree(self, mesh, state)
         params = shard_engine_tree(self, mesh, params)
-        host = state["host"]
-        jobnum = host["jobnum"]
-        multi = self.n_inputs > 1
         block = torch.as_tensor(block).to(dev0)
         tail = state["master"]["tail"]
         if self.digit_cols:
@@ -1230,8 +1246,7 @@ class Engine:
         if self.spur_bins is not None:
             vals = dm.take(Cs, self._spur_idx, scatter=False).first
             prev = state["spurs"].first
-            track = prev + float(np.float32(0.01)) * (vals - prev)  # tracker ~10 s (filter.c:447)
-            new_state["spurs"] = Sharded.replicate(track, mesh)
+            new_state["spurs"] = Sharded.replicate(prev + _SPUR_ALPHA * (vals - prev), mesh)
             dm.notch(Cs, self.spur_bins, new_state["spurs"], plan=self._spur_plan)
         Ff = None
         if any(g.tiled for g in self.groups.values()):
@@ -1239,20 +1254,17 @@ class Engine:
             ready: dict = {}  # one spectrum a distinct device
             for d in mesh.local:
                 if id(nat[d]) not in ready:
-                    ready[id(nat[d])] = self._pad_rows(nat[d]) if multi else nat[d][..., :m.bins]
+                    ready[id(nat[d])] = (self._pad_rows(nat[d]) if self.n_inputs > 1
+                                         else nat[d][..., :m.bins])
             Ff = each(mesh, lambda d, f: ready[id(f)], nat)
         spec = DigitSpectrum(dm, Cs, m.real)
-        new_groups, outputs, host_groups = {}, {}, {}
-        for name, g in self.groups.items():
-            blk_g = block[g.spec.input] if multi else block
-            gs, audio, info, host_groups[name] = g.step_mesh(
-                state["groups"][name], params[name], Ff, spec, blk_g, jobnum,
-                host["groups"][name])
-            new_groups[name] = gs
-            outputs[name] = {"audio": audio, "info": info}
-        outputs["_frontend"] = {"if_power": self._frontend(block).reshape(-1)}
-        new_state.update(groups=new_groups, host={"jobnum": jobnum + 1, "groups": host_groups})
-        return new_state, outputs
+
+        def chan(g, p, dues):
+            if g.tiled:
+                return g._chan_noise_mesh(p, Ff, dues[0])
+            return g._chan_noise_digit(p, spec, dues[0])
+
+        return self._step_groups(state, params, [block], chan, new_state)
 
     def step_time(self, state, params, blocks):
         """D consecutive blocks in one dispatch, one block a mesh device: the
@@ -1275,9 +1287,6 @@ class Engine:
         D, dev0 = mesh.size, mesh.home
         state = shard_engine_tree(self, mesh, state)
         params = shard_engine_tree(self, mesh, params)
-        host = state["host"]
-        jobnum0 = host["jobnum"]
-        multi = self.n_inputs > 1
         tail, F = batch_master_fft(m, state["master"]["tail"], blocks, mesh, self.shard_axis)
         Fs = each(mesh, lambda d, f: self._pad_rows(f[0]), F.shards)
         jn = state["master"]["jobnum"].first
@@ -1289,7 +1298,7 @@ class Engine:
                                    Fs), mesh, 0)[mesh.local[0]].to(dev0)
             tr, trs = state["spurs"].first, []
             for d in range(D):
-                tr = tr + float(np.float32(0.01)) * (vals[d] - tr)
+                tr = tr + _SPUR_ALPHA * (vals[d] - tr)
                 trs.append(tr)
             for d in mesh.local:
                 Fs[d].index_add_(-1, self._spur_idx_d[d], -trs[d].to(Fs[d].device))
@@ -1298,18 +1307,8 @@ class Engine:
             blks = list(blocks.full(dev0))  # every block: a collective across processes
         else:
             blks = list(torch.as_tensor(blocks).to(dev0))
-        new_groups, outputs, host_groups = {}, {}, {}
-        for name, g in self.groups.items():
-            blk_g = [b[g.spec.input] for b in blks] if multi else blks
-            gs, audio, info, host_groups[name] = g.step_blocks(
-                state["groups"][name], params[name], Fs, blk_g, jobnum0, host["groups"][name])
-            new_groups[name] = gs
-            outputs[name] = {"audio": audio, "info": info}
-        # [D, B] per-input powers ([D, 1] for one input)
-        outputs["_frontend"] = {"if_power": torch.stack(
-            [self._frontend(b).reshape(-1) for b in blks])}
-        new_state.update(groups=new_groups, host={"jobnum": jobnum0 + D, "groups": host_groups})
-        return new_state, outputs
+        return self._step_groups(state, params, blks,
+                                 lambda g, p, dues: g._chan_noise_blocks(p, Fs, dues), new_state)
 
 
 def migrate_state(old_state, new_state):

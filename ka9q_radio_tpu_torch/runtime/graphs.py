@@ -27,14 +27,17 @@ How it keeps the contract:
   * Params by address. Every writer (retune, set_edges, set_demod, set_armed,
     adopt_host_params) writes rows in place; a params leaf (a shard of a
     Sharded one) that is not the tensor the graphs were captured on raises.
-  * A graph per host branch. The key holds every host value that changes the
-    launched sequence or a scalar baked into a launch: for each block of the
-    dispatch, each group's warm-up and N0 cadence and each spectrum group's
-    `armed` flag. The host mirrors (state["host"]) advance on the host
-    (Engine.advance_host). A block whose launches would freeze a per-block
-    host scalar runs eagerly: a spectrum group's first fft_avg frames weigh
-    each frame by 1/(n+1) from the host's frame count (models/spectrum.py
-    _fold_frames). graph_stats() counts every eager block by its reason.
+  * A graph per host branch. The key is Engine.branch: for each block of
+    the dispatch, each group's branch as _Group.branch works it out from the
+    host mirrors (its warm-up and N0 cadence, a spectrum group's `armed`
+    flag), the letters the eager step dispatches on, so a key names every
+    host value that changes the launched sequence or a scalar baked into a
+    launch. The host mirrors (state["host"]) advance on the host
+    (Engine.advance_host), as the eager step advances them. A block whose
+    launches would freeze a per-block host scalar runs eagerly, for the
+    reason _Group.branch gives (a spectrum group's frame warm-up weighs each
+    frame by 1/(n+1) from the host's frame count); graph_stats() counts
+    every eager block by its reason.
   * Outputs live in the graph's own tensors, and the next replay of that
     graph overwrites them: a caller that keeps outputs across dispatches
     copies them first (Radiod._fetch_out does).
@@ -85,7 +88,6 @@ import sys
 import threading
 import time
 
-import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
@@ -302,30 +304,11 @@ class GraphStep:
 
     def key(self, host: dict) -> tuple:
         """(key, None) for a dispatch from these host mirrors, or (None,
-        reason) where it must run eagerly. The key spells each block's
-        branch, a letter a group in the engine's order ("/" between
-        blocks): W warm-up (N0 re-seeds), N N0 due, . N0 not due, w a wide
-        spectrum, i a disarmed spectrum."""
-        eng, h, blocks = self.eng, host, []
-        for _ in range(max(self.D, 1)):
-            parts = []
-            for name, g in eng.groups.items():
-                gh = h["groups"][name]
-                if g.spec.demod == "spectrum":
-                    if not g.host["armed"]:
-                        parts.append("i")
-                        continue
-                    geo = g.wide_geo if g.spectrum_wide else g.spectrum_geo
-                    if gh["frames"] < geo.fft_avg:
-                        return None, f"{name}: spectrum warm-up (frame weights 1/(n+1))"
-                    if g.spectrum_wide:
-                        parts.append("w")
-                        continue
-                warm, due = g._cadence(gh, h["jobnum"])
-                parts.append("W" if warm else "N" if due else ".")
-            blocks.append("".join(parts))
-            h = eng.advance_host(h)
-        return "/".join(blocks), None
+        reason) where it must run eagerly: Engine.branch over the
+        dispatch's blocks, each block's branch a letter a group in the
+        engine's order ("/" between blocks; _Group.branch says what each
+        letter means), the letters the eager step dispatches on."""
+        return self.eng.branch(host, max(self.D, 1))
 
     # -- static buffers -----------------------------------------------------
     def input_buffer(self) -> torch.Tensor:
@@ -506,26 +489,23 @@ class GraphStep:
         if self.emulate or not self.compiled:
             return 0
         self._bind(state, params)
-        spec = [g for g in self.eng.groups.values() if g.spec.demod == "spectrum"]
-        warm = 2 + max((-(-geo.fft_avg // geo.frames_per_block)
-                         for geo in (g.wide_geo if g.spectrum_wide else g.spectrum_geo
-                                     for g in spec)), default=0)
-        dispatches = -(-warm // max(self.D, 1)) + self.eng.noise_every
+        eng, host = self.eng, state["host"]
+        dispatches = -(-eng.warmup_blocks // max(self.D, 1)) + eng.noise_every
         n0 = len(self.graphs)
-        for flip in [None] + spec:
-            saved = None if flip is None else flip.host["armed"]
+        for flip in [None] + [n for n, g in eng.groups.items() if g.spec.demod == "spectrum"]:
+            armed = flip is not None and eng.groups[flip].branch(host["groups"][flip], 0)[0] != "i"
             if flip is not None:
-                flip.host["armed"] = np.float32(0.0 if saved else 1.0)
+                eng.set_armed(params, flip, not armed)
             try:
-                h = state["host"]
+                h = host
                 for _ in range(dispatches):
-                    key, why = self.key(h)
+                    key, _ = self.key(h)
                     if key is not None and key not in self.graphs:
                         self.graphs[key] = self._capture(key, params, h)
                     h = self._advance(h)
             finally:
                 if flip is not None:
-                    flip.host["armed"] = saved
+                    eng.set_armed(params, flip, armed)
         return len(self.graphs) - n0
 
     def reset(self) -> None:

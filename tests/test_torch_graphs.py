@@ -78,7 +78,9 @@ def _engine(config: str, rt=trt, **kw):
     """Small engines of each kind: (engine, block maker (b, rng) -> one
     block, time shards). "rx888_meshD": the rx888 engine with a spur on
     make_mesh(["cpu"] * D), channel-sharded; "rx888_meshD_ts": time-sharded
-    over the D devices."""
+    over the D devices; "survey": NBFM beside a narrowband spectrum (rbw
+    under the crossover: FFTs of its baseband, two frames a block, a frame
+    warm-up of two blocks)."""
     ch = rt.ChannelSpec
     if config.startswith("rx888_mesh"):
         from ka9q_radio_tpu_torch.parallel import make_mesh
@@ -107,6 +109,10 @@ def _engine(config: str, rt=trt, **kw):
         # the 2 m daemon's kinds: NBFM with CTCSS (the Goertzel kernel), SAM
         # (the PLL kernel)
         "2m": [g for g in demod_groups(rt) if g.name in ("fm", "sam")],
+        "survey": [rt.GroupSpec(name="nbfm", demod="fm", samprate=24_000, channels=tuple(
+            ch(freq=float(f), low=-8000.0, high=8000.0) for f in (-300e3, 300e3))),
+            rt.GroupSpec(name="survey", demod="spectrum", samprate=12_000, bin_bw=100.0,
+                         bin_count=64, fft_avg=4, channels=(ch(freq=100e3),))],
     }[config]
     eng = rt.Engine(samprate=CFS, real=False, groups=groups, **kw)
     return eng, lambda b, rng: _cplx_block(b, eng.L, rng), 0
@@ -180,16 +186,18 @@ def _kernels_opaque(monkeypatch, rec: _Ops) -> None:
 
 
 @pytest.mark.parametrize("config", ["rx888", "nbfm", "wfm", "two_inputs", "2m", "rx888_ts3",
-                                    "rx888_mesh2", "rx888_mesh3_ts"])
+                                    "rx888_mesh2", "rx888_mesh3_ts", "survey"])
 def test_one_key_one_launch_sequence(monkeypatch, config):
     """Dispatches from block 0 (the master's warm-up), through the N0
-    cadence (noise_every 4), a retune, and for the rx888 engine the sweep
-    disarmed for two dispatches; with time shards D 3, whose dispatches run
-    through four cadence patterns (test_static_body_equals_eager_steps
-    disarms the sweep there). On a mesh: the channel-sharded step (the
-    corner turns, the all-gather, A and B once a shard) and step_time.
-    Every two dispatches of one graph key record the same ops; at least
-    three keys occur, and each but the warm-up's repeats."""
+    cadence (noise_every 4), a retune, and for the rx888 and survey engines
+    the spectrum group (the wide sweep; the narrowband survey, after its
+    frame warm-up ran eagerly) disarmed for two dispatches; with time
+    shards D 3, whose dispatches run through four cadence patterns
+    (test_static_body_equals_eager_steps disarms the sweep there). On a
+    mesh: the channel-sharded step (the corner turns, the all-gather, A and
+    B once a shard) and step_time. Every two dispatches of one graph key
+    record the same ops; at least three keys occur, and each but the
+    warm-up's repeats."""
     eng, make, D = _engine(config, device="cpu")
     rec = _Ops()
     _kernels_opaque(monkeypatch, rec)
@@ -197,14 +205,16 @@ def test_one_key_one_launch_sequence(monkeypatch, config):
     p, st = eng.init_params(), eng.init_state()
     first = next(iter(eng.groups))
     seen: dict = {}
-    repeats = 0
+    repeats = eager = 0
     rng = np.random.default_rng(2)
     for b in range(12 if not D else 9):
         if b == 5:
             g = eng.groups[first]
             eng.retune(p, first, 0, float(g.spec.channels[0].freq) + 1000.0)
-        if "sweep" in eng.groups and not D and b in (6, 8):
-            eng.set_armed(p, "sweep", b == 8)
+        if not D and b in (6, 8):
+            for name, g in eng.groups.items():
+                if g.spec.demod == "spectrum":
+                    eng.set_armed(p, name, b == 8)
         key, why = gs.key(st["host"])
         blk = _blocks(make, b, D, rng)
         rec.ops = []
@@ -217,6 +227,7 @@ def test_one_key_one_launch_sequence(monkeypatch, config):
                 assert "'torch.bool'" not in repr(args), (config, b, op)
         if key is None:
             assert why and "spectrum warm-up" in why, why
+            eager += 1
             continue
         if key in seen:
             assert rec.ops == seen[key], (config, b, key)
@@ -224,6 +235,8 @@ def test_one_key_one_launch_sequence(monkeypatch, config):
         else:
             seen[key] = rec.ops
     assert len(seen) >= 3 and repeats >= len(seen) - 1, (config, sorted(seen), repeats)
+    if config == "survey":  # the narrowband spectrum's frame warm-up and its i letter
+        assert eager == 2 and {".i", "Ni"} & set(seen), (eager, sorted(seen))
 
 
 def test_a_host_scalar_in_a_launch_changes_the_key(monkeypatch):
@@ -247,6 +260,43 @@ def test_a_host_scalar_in_a_launch_changes_the_key(monkeypatch):
             eng.step(st, p, _blocks(make, 0, 0, rng))
         got.append(rec.ops)
     assert geo.fft_avg > 3 and got[0] != got[1]
+
+
+# the keys of the first dispatches of two shipped deployments, as literals:
+# the flagship (one USB group, 8 blocks a dispatch; its raster cut to 8
+# channels, which the key does not read) and the station (four groups, one
+# block a dispatch); N0 every 4th block, the master's warm-up 2 blocks
+FIRST_KEYS = {
+    "rx888-wspr": ["W/W/././N/././.", "N/./././N/././.", "N/./././N/././.",
+                   "N/./././N/././."],
+    "hf-generic": ["WWWW", "WWWW", "....", "....", "NNNN", "....", "....", "....", "NNNN",
+                   "....", "....", "...."],
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIRST_KEYS))
+def test_first_keys_of_the_shipped_deployments(name):
+    """examples/radiod@<name>.conf's daemon (its rtp front end a sig_gen):
+    the keys of its first dispatches, each dispatch's host mirrors advanced
+    as a replay advances them, are the pinned ones."""
+    import re
+    from pathlib import Path
+
+    from ka9q_radio_tpu_torch.config import load_config
+    from ka9q_radio_tpu_torch.runtime.radiod import Radiod
+
+    text = (Path(__file__).resolve().parents[1] / "examples" / f"radiod@{name}.conf").read_text()
+    text = re.sub(r"(?m)^device\s*=\s*rtp\b.*$", "device = sig_gen", text)
+    text = re.sub(r"(?m)^(stream|encoding)\s*=.*$", "", text)
+    text = re.sub(r"(?m)^raster\s*=.*$", "raster = 2m6 2m6145 1k815", text)
+    rd = Radiod(load_config(text), use_network=False, device="cpu")
+    gs, host, keys = rd._stepper, rd.state["host"], []
+    for _ in FIRST_KEYS[name]:
+        key, why = gs.key(host)
+        assert why is None, why
+        keys.append(key)
+        host = gs._advance(host)
+    assert keys == FIRST_KEYS[name]
 
 
 # -- (b) writers keep addresses ----------------------------------------------
