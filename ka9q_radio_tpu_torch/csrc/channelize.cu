@@ -1,4 +1,7 @@
-// Fused tile channelizer for Hopper (sm_90a), plain C interface for ctypes.
+// Fused tile channelizer for Hopper (sm_90a), plain C interface for ctypes:
+// kernel A of the port, in two designs that compute the same function, a
+// one-shot grid and a persistent one (ops/cuda_channelize.py
+// `channelize_plan` picks one from the launch's shape and the card's SMs).
 //
 // Replaces the TPU kernel `_kernel` / `pallas_channelize` in
 // ka9q_radio_tpu/ops/pallas_channelize.py. It computes what the plain
@@ -19,24 +22,27 @@
 //   Y[t] = sum_{k < n} xf[k] E[k, t],   xf[k] = sum_{j = k mod n, j < S} x[j]:
 // the product needs n terms, not S (300 of 512 at the rx888 shapes).
 //
-// Product. One real GEMM on the tensor cores,
+// Product. Both designs run it on the tensor cores in split ("3xTF32")
+// precision: one TF32 pass keeps 11 significant bits, too few for the
+// 3e-5 * scale parity bound, so every product is split,
+//   a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi,  a_hi = rna_tf32(a),
+//   a_lo = rna_tf32(a - a_hi),
+// which is accurate to about FP32, of X with cvt.rna.tf32.f32 in the
+// kernel, of the constant as channelize_operand splits it.
+//
+// The one-shot design (channelize_kernel, every launch of few row tiles):
+// one real GEMM,
 //   [Xr | Xi] (rows x 2n) . [[Er, Ei], [-Ei, Er]] (2n x 2 olen),
 // output columns interleaved (2t = Re Y[t], 2t + 1 = Im Y[t]) so that each
 // thread's accumulator pair is one complex sample, and K taken in chunks of
 // 32 rows, each the Re and then the Im parts of 16 fold bins, so that any
-// run of whole chunks is a run of fold bins. One TF32 pass keeps 11
-// significant bits, too few for the 3e-5 * scale parity bound, so every
-// product is split ("3xTF32"):
-//   a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi,  a_hi = rna_tf32(a),
-//   a_lo = rna_tf32(a - a_hi),
-// which is accurate to about FP32. The constant operand (the real-block E,
-// padded to the MMA's K and N, hi and lo already split, in K-major core
-// matrices) is a group constant built once on the device
-// (ops/cuda_channelize.py `channelize_operand`); only X is split here, with
-// cvt.rna.tf32.f32. A 64-row tile (n <= 320, rx888's 300 included) runs
-// wgmma.m64n32k8: each warpgroup takes 32 columns, A from registers, B from
-// the ring through an unswizzled descriptor. Smaller tiles (16 or 32 rows,
-// when a wider slice's X tile leaves less shared memory) run
+// run of whole chunks is a run of fold bins. The constant operand (the
+// real-block E, padded to the MMA's K and N, hi and lo already split, in
+// K-major core matrices) is a group constant built once on the device
+// (`channelize_operand`). A 64-row tile (n <= 320, rx888's 300 included)
+// runs wgmma.m64n32k8: each warpgroup takes 32 columns, A from registers, B
+// from the ring through an unswizzled descriptor. Smaller tiles (16 or 32
+// rows, when a wider slice's X tile leaves less shared memory) run
 // mma.sync.m16n8k8 on the same layout. A slice too wide for even a 16-row
 // X tile (n > 1280) takes it in K segments of at most 2560 rows: gather and
 // fold one segment's fold bins, run its chunks, then the next segment.
@@ -70,6 +76,23 @@
 // not the arithmetic, set the time. The earlier FP32-FMA version (all S
 // terms) matched the plain version bit for bit at the rx888 shapes; this
 // one matches it within rounding.
+//
+// The persistent design (channelize_kernel_persist, below) replaces that
+// grid where it is many waves deep. At the flagship (C 32,728, n 300, olen
+// 240) the one-shot grid is 8 column tiles x 512 row tiles, 4,096 one-shot
+// CTAs in about 31 waves, each gathering half its row tile and then
+// streaming 19 chunks of the constant, nothing overlapping the two: the
+// constant (2.49 MB) read by every row tile, 1.27 GB, and every row
+// gathered by the four clusters of its row tile, 1.05 GB, so 2.3 GB
+// through L2 a launch, about 2.5 TB/s at its 0.915 ms, against 57 GFLOP of
+// TF32 (0.115 ms at the peak). The persistent design gathers each row once
+// (0.27 GB: 512 master and 512 response bins a channel), reads of the
+// constant only its n values, 2.4 KB a CTA, and writes 63 MB: about 0.33 GB
+// a launch. The gather runs under the products, so what bounds it is the
+// tensor cores: 61 GFLOP of wgmma (olen padded to 256) at 132 SMs, 0.124 ms
+// at the peak, against about 0.27 ms of m64n32k8 steps measured without
+// the gather (PERF.md §6). Its N is 32 channels because X's hi and lo parts
+// for a row tile share the 227 KB of shared memory with nothing else.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -137,6 +160,12 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving the definitions of A fragments computed in
+// registers past the wgmma.fence that opens the step reading them
+__device__ __forceinline__ void fence_fragment(unsigned (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 // keeps the compiler from moving reads of d above the wait
 __device__ __forceinline__ void fence_operand(float (&d)[4][4]) {
@@ -441,19 +470,386 @@ void plan(int n_pad, int* wm, int* kseg) {
   *kseg = (int)((kSmemMax / sizeof(float) - kStages * kChunkFloats) / 16 - 4) / kKC * kKC;
 }
 
+// ---------------------------------------------------------------------------
+// The persistent design (launches of many row tiles; ops/cuda_channelize.py
+// `channelize_plan` picks it). One CTA an SM, each walking row tiles of
+// kPRows channels (tile = blockIdx.x, += gridDim.x). The product runs
+// transposed,
+//   Y^T [olen x rows] = E^T [olen x n] . X^T [n x rows],
+// as wgmma.m64n32k8 with the constant as A, in registers, and X^T as B, in
+// shared memory (its TF32 hi and lo parts, each [n_pad / 4][kPRows][4]).
+// Warpgroups 0 and 1 multiply: in each pass over K, kPMT M tiles of 32
+// samples each (Re and Im of a sample in rows g and g + 8 of a warp's 16).
+// Warpgroup 2 gathers and folds: each row once a launch, a k8 step of the
+// next row tile at a time, into the X rows that the last pass of the row
+// tile before has done with, so that the gather runs under the products.
+// Each k8 step of X has a `full` barrier (the gatherers wrote it) and an
+// `empty` one (every multiplying warp is done with it).
+//
+// The constant is not read from device memory in the loop: its entries are
+// E[k, t] = T[((k - n/2) (n - olen + t)) mod n], n values (the
+// tiled_idft_matrix), so each CTA copies the n values out of E once into a
+// table, and each thread looks up its A fragments there, a k8 step at a
+// time, and splits them as channelize_operand does (the operand's bits).
+//
+// Only the Re-x rows of the real-block constant are used ([Er, Ei]): its
+// Im-x rows [-Ei, Er] are the same numbers, so X's Im parts run against
+// them into a second accumulator Q, and Y = (P_re - Q_im) + i (P_im +
+// Q_re). The products are the one-shot kernel's (the TF32 split is odd,
+// rna(-x) = -rna(x)); only the order of the sum over K differs. The three
+// split products of a step go into one accumulator, smallest first.
+constexpr int kPRows = 32;       // channels a row tile (the wgmma's N)
+constexpr int kPThreads = 384;   // two multiplying warpgroups and a gathering one
+constexpr int kPMT = 2;          // M tiles of 32 output samples a warpgroup holds
+constexpr int kPMaxN = 320;      // the table's entries: n_bins <= n_pad <= 320
+constexpr int kPSteps = kPMaxN / 8;  // k8 steps of X, at most
+constexpr int kPD = 4;           // k8 steps a gatherer has in flight
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// returns once the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra LAB_DONE;\nbra LAB_WAIT;\nLAB_DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// arrives on the barrier if `on` (a predicate, not a branch)
+__device__ __forceinline__ void mbar_arrive_if(unsigned bar, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((unsigned)on)
+      : "memory");
+}
+
+// Descriptor of a K-major, unswizzled B tile of 32 channels x 8 k at shared
+// address saddr: core matrices of 8 channels x 4 k (128 contiguous bytes),
+// the next 4 k kPRows * 16 bytes on, the next 8 channels 128 bytes on.
+__device__ __forceinline__ unsigned long long x_desc(unsigned saddr) {
+  return (unsigned long long)((saddr & 0x3FFFF) >> 4) |
+         ((unsigned long long)((kPRows * 16) >> 4) << 16) | ((unsigned long long)(128 >> 4) << 32);
+}
+
+__global__ void __launch_bounds__(kPThreads, 1)
+channelize_kernel_persist(const float2* __restrict__ F, long long m_bins, long long ld,
+                          int nrows, int real_master, const int* __restrict__ inputs,
+                          const float2* __restrict__ resp, const int* __restrict__ tile_lo,
+                          const int* __restrict__ slope, const int* __restrict__ shifts,
+                          const float2* __restrict__ E, int C, int S, int olen, int n_bins,
+                          int n_pad, float w, float2* __restrict__ out) {
+  // [X: Re hi, Re lo, Im hi, Im lo, each [n_pad / 4][kPRows][4]][table: the n values of
+  // E][full, empty barriers of each k8 step]
+  extern __shared__ __align__(128) float psm_f[];
+  const int xsz = n_pad * kPRows, nsteps = n_pad / 8;
+  float2* tab = reinterpret_cast<float2*>(psm_f + 4 * xsz);
+  const unsigned xs0 = (unsigned)__cvta_generic_to_shared(psm_f);
+  const unsigned full0 = (unsigned)__cvta_generic_to_shared(tab + kPMaxN);
+  const unsigned empty0 = full0 + 8 * kPSteps;
+  __shared__ int g_lo[kPRows], g_in[kPRows], e_slope[kPRows], e_inv[kPRows];
+
+  const int n = n_bins, half_n = n_bins / 2, t0 = n_bins - olen;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup and its warp, through a shuffle: the compiler then knows
+  // them uniform over the warp, and every path to a wgmma warpgroup-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int w4 = __shfl_sync(0xffffffffu, (tid >> 5) & 3, 0);
+  if (tid == 0) {
+    for (int s = 0; s < nsteps; ++s) {
+      mbar_init(full0 + 8 * s, 128);  // every gatherer
+      mbar_init(empty0 + 8 * s, 8);   // a lane of every multiplying warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the table: T[m] = E[k, olen - 1] for k = (n/2 - m) mod n
+  for (int m = tid; m < n; m += kPThreads)
+    tab[m] = E[(size_t)((half_n - m + n) % n) * olen + olen - 1];
+  __syncthreads();
+  const int ntiles = (C + kPRows - 1) / kPRows;
+
+  if (wg == 2) {
+    // the gatherers: a k8 step of a row tile is 128 items, one a thread: fold
+    // bins k, k + 1 (k = 8 s + 4 grp + 2 sub) of channel r, the Re and Im
+    // parts' TF32 hi and lo to [k / 4][r][k % 4] of each X array
+    const int gt = tid - 256, sub = gt & 1, r = (gt >> 1) % kPRows, grp = gt / (2 * kPRows);
+    const int nterm = (S + n_bins - 1) / n_bins;
+    const int off = (grp * kPRows + r) * 4 + 2 * sub;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+      const int c = tile * kPRows + r;
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");  // done with the last tile's rows
+      if (gt < kPRows) {
+        const int ch = tile * kPRows + gt;
+        g_lo[gt] = ch < C ? tile_lo[ch] : 0;
+        g_in[gt] = ch < C && inputs != nullptr ? inputs[ch] : 0;
+      }
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");
+      const int lo_r = g_lo[r];
+      const float2* rc = resp + (long long)c * S;
+      const float2* Fc = F + (long long)g_in[r] * ld;
+      auto tile_bin = [&](int j) -> long long {
+        int row = lo_r + j / kTile;
+        if (real_master) {
+          row = min(max(row, 0), nrows - 1);
+        } else {
+          row %= nrows;
+          if (row < 0) row += nrows;
+        }
+        return (long long)row * kTile + (j % kTile);
+      };
+      for (int s0 = 0; s0 < nsteps; s0 += kPD) {
+        float re[kPD][2], im[kPD][2];
+#pragma unroll
+        for (int u = 0; u < kPD; ++u) re[u][0] = re[u][1] = im[u][0] = im[u][1] = 0.f;
+        for (int m0 = 0; m0 < nterm; m0 += kMT) {
+          float2 f[kPD][kMT][2], x[kPD][kMT][2];
+#pragma unroll
+          for (int u = 0; u < kPD; ++u) {
+            const int k = 8 * (s0 + u) + 4 * grp + 2 * sub;
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+              const int j = k + (m0 + mt) * n_bins;
+              const float2 z = make_float2(0.f, 0.f);
+              f[u][mt][0] = f[u][mt][1] = x[u][mt][0] = x[u][mt][1] = z;
+              if (s0 + u < nsteps && c < C && k < n_bins && j < S) {
+                const long long bin = tile_bin(j);
+                if ((j & 1) == 0 && k + 1 < n_bins && bin + 1 < m_bins) {
+                  const float4 fv = *reinterpret_cast<const float4*>(Fc + bin);
+                  const float4 xv = *reinterpret_cast<const float4*>(rc + j);
+                  f[u][mt][0] = make_float2(fv.x, fv.y);
+                  f[u][mt][1] = make_float2(fv.z, fv.w);
+                  x[u][mt][0] = make_float2(xv.x, xv.y);
+                  x[u][mt][1] = make_float2(xv.z, xv.w);
+                } else {
+                  if (bin < m_bins) {
+                    f[u][mt][0] = Fc[bin];
+                    x[u][mt][0] = rc[j];
+                  }
+                  const long long bin1 = tile_bin(j + 1);
+                  if (k + 1 < n_bins && j + 1 < S && bin1 < m_bins) {
+                    f[u][mt][1] = Fc[bin1];
+                    x[u][mt][1] = rc[j + 1];
+                  }
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kPD; ++u)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float2 a = f[u][mt][e], b = x[u][mt][e];
+                re[u][e] += a.x * b.x - a.y * b.y;
+                im[u][e] += a.x * b.y + a.y * b.x;
+              }
+        }
+#pragma unroll
+        for (int u = 0; u < kPD; ++u) {
+          const int s = s0 + u;
+          if (s >= nsteps) break;
+          float hi[4], lo[4];
+          const float v[4] = {re[u][0], re[u][1], im[u][0], im[u][1]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hi[e] = __uint_as_float(to_tf32(v[e]));
+            lo[e] = __uint_as_float(to_tf32(v[e] - hi[e]));
+          }
+          // the multiplying warps are done with step s of the last row tile
+          mbar_wait(empty0 + 8 * s, (it & 1) ^ 1);
+          float* xs = psm_f + s * 2 * kPRows * 4 + off;
+          *reinterpret_cast<float2*>(xs) = make_float2(hi[0], hi[1]);
+          *reinterpret_cast<float2*>(xs + xsz) = make_float2(lo[0], lo[1]);
+          *reinterpret_cast<float2*>(xs + 2 * xsz) = make_float2(hi[2], hi[3]);
+          *reinterpret_cast<float2*>(xs + 3 * xsz) = make_float2(lo[2], lo[3]);
+          // the tensor cores read X through the async proxy
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive_if(full0 + 8 * s, true);
+        }
+      }
+    }
+    return;
+  }
+
+  // the multiplying warpgroups
+  const int g = lane >> 2, tig = lane & 3;
+  const int nmt = (olen + 31) / 32;                          // M tiles
+  const int npass = (nmt + 2 * kPMT - 1) / (2 * kPMT);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int c0 = tile * kPRows;
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the last tile's epilogues are done
+    if (tid < kPRows) {
+      const int c = c0 + tid;
+      e_slope[tid] = c < C ? (slope[c] % n_bins + n_bins) % n_bins : 0;
+      e_inv[tid] = c < C && real_master && shifts[c] < 0;
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    for (int p = 0; p < npass; ++p) {
+      const int mt0 = 2 * kPMT * p + kPMT * wg;
+      const bool last = p == npass - 1;
+      // this thread's A fragments of M tile mt0 + u: sample t = 32 (mt0 +
+      // u) + 8 w4 + g, fold bins k8 + tig and + 4; the table index of the
+      // first, and what four and eight more fold bins add (mod n). M tiles
+      // past the last sample run on zero fragments (no branch around a wgmma)
+      int mi[kPMT], d4[kPMT], d8[kPMT];
+      bool valid[kPMT];
+#pragma unroll
+      for (int u = 0; u < kPMT; ++u) {
+        const int t = 32 * (mt0 + u) + 8 * w4 + g;
+        valid[u] = t < olen;
+        const int tt = (t0 + t) % n;
+        d4[u] = (4 * tt) % n;
+        d8[u] = (8 * tt) % n;
+        mi[u] = ((tig - half_n + n) * tt) % n;
+      }
+      // P = E^T . Xr^T, Q = E^T . Xi^T: [M tile][n8 tile of 8 channels][4]
+      float P[kPMT][4][4], Q[kPMT][4][4];
+#pragma unroll
+      for (int u = 0; u < kPMT; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) P[u][j][i] = Q[u][j][i] = 0.f;
+#pragma unroll
+      for (int u = 0; u < kPMT; ++u) {
+        fence_operand(P[u]);
+        fence_operand(Q[u]);
+      }
+      // two sets of A fragments, so that a step's lookups never write the
+      // registers the tensor cores may still read for the step before
+      unsigned ahi[2][kPMT][4], alo[2][kPMT][4];
+      for (int k16 = 0; k16 < n_pad; k16 += 16) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k8 = k16 + 8 * h, s = k8 / 8;
+#pragma unroll
+          for (int u = 0; u < kPMT; ++u) {
+            int m2 = mi[u] + d4[u];
+            if (m2 >= n) m2 -= n;
+            const float2 z = make_float2(0.f, 0.f);
+            const float2 va = valid[u] && k8 + tig < n ? tab[mi[u]] : z;
+            const float2 vb = valid[u] && k8 + tig + 4 < n ? tab[m2] : z;
+            // rows g (Re) and g + 8 (Im) of the sample, fold bins k8 + tig, + 4
+            const float a[4] = {va.x, va.y, vb.x, vb.y};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              ahi[h][u][i] = to_tf32(a[i]);
+              alo[h][u][i] = to_tf32(a[i] - __uint_as_float(ahi[h][u][i]));
+            }
+            mi[u] += d8[u];
+            if (mi[u] >= n) mi[u] -= n;
+            fence_fragment(ahi[h][u]);
+            fence_fragment(alo[h][u]);
+          }
+          if (p == 0) mbar_wait(full0 + 8 * s, it & 1);  // the gatherers wrote step s
+          // B: X^T's fold bins k8 .. k8 + 7 (two groups of 4, kPRows * 16 bytes apart)
+          const unsigned xk = xs0 + (k8 / 4) * kPRows * 16;
+          const unsigned long long rh = x_desc(xk), rl = x_desc(xk + 4 * xsz),
+                                   ih = x_desc(xk + 8 * xsz), il = x_desc(xk + 12 * xsz);
+          wgmma_fence();
+#pragma unroll
+          for (int u = 0; u < kPMT; ++u) {
+            wgmma_tf32(P[u], alo[h][u], rh);
+            wgmma_tf32(Q[u], alo[h][u], ih);
+          }
+#pragma unroll
+          for (int u = 0; u < kPMT; ++u) {
+            wgmma_tf32(P[u], ahi[h][u], rl);
+            wgmma_tf32(Q[u], ahi[h][u], il);
+          }
+#pragma unroll
+          for (int u = 0; u < kPMT; ++u) {
+            wgmma_tf32(P[u], ahi[h][u], rh);
+            wgmma_tf32(Q[u], ahi[h][u], ih);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+          // the step before is done with its X: the last pass hands it back
+          if (s > 0) mbar_arrive_if(empty0 + 8 * (s - 1), last && lane == 0);
+        }
+      }
+      wgmma_wait<0>();
+      mbar_arrive_if(empty0 + 8 * (nsteps - 1), last && lane == 0);
+#pragma unroll
+      for (int u = 0; u < kPMT; ++u) {
+        fence_operand(P[u]);
+        fence_operand(Q[u]);
+      }
+
+      // accumulator (rows g, g + 8: Re, Im of sample t; columns 2 tig, 2 tig
+      // + 1 of n8 tile j: channels 8 j + 2 tig + cc)
+#pragma unroll
+      for (int u = 0; u < kPMT; ++u) {
+        const int t = 32 * (mt0 + u) + 8 * w4 + g;
+        if (!valid[u]) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int r = 8 * j + 2 * tig + cc;
+            const int c = c0 + r;
+            if (c >= C) continue;
+            const float yr = P[u][j][cc] - Q[u][j][2 + cc];
+            const float y1 = P[u][j][2 + cc] + Q[u][j][cc];
+            const float yi = e_inv[r] ? -y1 : y1;
+            const int ph = (int)((unsigned)(e_slope[r] * (t0 + t)) % (unsigned)n_bins);
+            float sn, co;
+            sincosf(w * (float)ph, &sn, &co);
+            out[(long long)c * olen + t] = make_float2(yr * co - yi * sn, yr * sn + yi * co);
+          }
+      }
+    }
+  }
+}
+
+size_t persist_smem_bytes(int n_pad) {
+  return sizeof(float) * 4 * (size_t)n_pad * kPRows + sizeof(float2) * kPMaxN + 16 * kPSteps;
+}
+
+int launch_persist(const void* F, long long m_bins, long long ld, int nrows, int real_master,
+                   const void* inputs, const void* resp, const void* tile_lo, const void* slope,
+                   const void* shifts, const void* E, int C, int S, int olen, int n_bins,
+                   int n_pad, float w, void* out, cudaStream_t stream) {
+  const size_t smem = persist_smem_bytes(n_pad);
+  if (smem > kSmemMax || n_pad > kPMaxN) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(channelize_kernel_persist,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (C + kPRows - 1) / kPRows;
+  channelize_kernel_persist<<<min(ntiles, sms), kPThreads, smem, stream>>>(
+      (const float2*)F, m_bins, ld, nrows, real_master, (const int*)inputs, (const float2*)resp,
+      (const int*)tile_lo, (const int*)slope, (const int*)shifts, (const float2*)E, C, S, olen,
+      n_bins, n_pad, w, (float2*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // All pointers are device pointers; stream is a cudaStream_t. Bop is the
 // constant for (n_bins, olen) from channelize_operand, n_pad = n_bins rounded up
-// to 16. inputs is null for one spectrum F [m_bins]; else F is [B, ld], ld
-// even, and inputs[c] < B. Returns the cudaError_t of the launch (0 on
-// success).
+// to 16, E the [S, olen] IDFT matrix it was built from. inputs is null for
+// one spectrum F [m_bins]; else F is [B, ld], ld even, and inputs[c] < B.
+// persist picks the persistent design (the caller's channelize_plan; it reads
+// E), else the one-shot one (it reads Bop). Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int ka9q_channelize(const void* F, long long m_bins, long long ld, int nrows,
                                int real_master, const void* inputs, const void* resp,
                                const void* tile_lo, const void* slope, const void* shifts,
-                               const void* Bop, int C, int S, int olen, int n_bins, int n_pad,
-                               float w, void* out, void* stream) {
+                               const void* Bop, const void* E, int C, int S, int olen, int n_bins,
+                               int n_pad, float w, int persist, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (persist)
+    return launch_persist(F, m_bins, ld, nrows, real_master, inputs, resp, tile_lo, slope,
+                          shifts, E, C, S, olen, n_bins, n_pad, w, out, st);
   int wm, kseg;
   plan(n_pad, &wm, &kseg);
   switch (wm) {

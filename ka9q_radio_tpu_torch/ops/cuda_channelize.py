@@ -26,10 +26,14 @@ loads (the engine pads rows to whole 128-bin tiles; an odd real m_bins,
 rx888's 1,620,001, would misalign every odd row).
 
 Kernel A folds the tile frame S -> n (the IDFT constant is periodic in its
-row with period n) and runs the product on the tensor cores as one real
-GEMM in split ("3xTF32") precision; its constant operand, the real-block
-IDFT split into TF32 hi and lo parts in K-major core matrices, is built
-once per group by `channelize_operand` (csrc/channelize.cu says why and
+row with period n) and runs the product on the tensor cores in split
+("3xTF32") precision, in one of two designs that `channelize_plan` picks
+from the launch's shape and the card's SM count: a one-shot grid (a CTA a
+row tile and column tile) that reads the constant operand, the real-block
+IDFT split into TF32 hi and lo parts in K-major core matrices, built once
+per group by `channelize_operand`; or, for launches of many row tiles, a
+persistent one (a CTA an SM walking the row tiles) that looks the
+constant's n values up on chip from E (csrc/channelize.cu says why and
 how).
 
 A wrapper given CPU tensors runs the plain version: that is the CPU path of
@@ -63,7 +67,8 @@ from .noise import (N_CUTOFF, _quantile_terms, estimate_noise_keys, gather_noise
                     noise_correction, noise_window_fits)
 
 __all__ = ["launches", "reset_launches", "recording", "build", "cuda_channelize", "cuda_noise_est",
-           "channelize_operand", "fold_pad", "round_tf32", "SOURCES", "REPLACES"]
+           "channelize_operand", "channelize_plan", "sm_count", "fold_pad", "round_tf32", "SOURCES",
+           "REPLACES"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -74,7 +79,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _V, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _KERNELS = {
     "channelize": ("channelize.cu", "ka9q_channelize",
-                   [_V, _LL, _LL, _I, _I, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _V, _V]),
+                   [_V, _LL, _LL, _I, _I, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _I,
+                    _V, _V]),
     "noise_est": ("noise_est.cu", "ka9q_noise_est",
                   [_V, _LL, _LL, _I, _I, _V, _V, _I, _I, _I, _I, _F, _F, _F, _F, _F, _V, _V, _V]),
     "pll_scan": ("recur.cu", "ka9q_pll_scan", [_V, _I, _I] + [_V] * 16),
@@ -98,6 +104,14 @@ REPLACES = {
 
 # kernel A's tiling (csrc/channelize.cu): K chunk and column tile
 _KC, _COLS = 32, 64
+# its persistent design's widest fold: its table holds the constant's n values, 320 at most
+# (X of a 32-channel row tile, hi and lo, then takes 160 KB of shared memory)
+_P_MAXN = 320
+# the persistent design when the one-shot grid (row tiles of 64 x column tiles) would take
+# more than this many waves of one CTA an SM: on an H100 (PERF.md §6) the one-shot grid of
+# one wave is the faster (C 1,000: 0.029 against 0.043 ms), of two the slower (C 1,088:
+# 0.056 against 0.043)
+_P_WAVES = 1
 
 launches = {name: 0 for name in _KERNELS}
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -235,6 +249,33 @@ def channelize_operand(E: torch.Tensor, n_bins: int, olen: int) -> torch.Tensor:
     return T.permute(4, 0, 1, 5, 8, 6, 2, 7, 3).contiguous().reshape(-1)
 
 
+def channelize_plan(C: int, n_pad: int, olen: int, sms: int) -> str:
+    """Kernel A's design for a launch of C channels at fold length n_pad and
+    olen output samples on a card of `sms` SMs (0: no card): "persistent" (a
+    CTA an SM walks the row tiles, each row gathered once, the constant
+    looked up on chip from its n values) where n_pad <= _P_MAXN and the
+    one-shot grid would take more than _P_WAVES waves, else "one-shot" (a
+    CTA a row tile and column tile)."""
+    one_shot_ctas = -(-C // 64) * (2 * (-(-olen // 32) * 32) // _COLS)
+    if sms > 0 and n_pad <= _P_MAXN and one_shot_ctas > _P_WAVES * sms:
+        return "persistent"
+    return "one-shot"
+
+
+_sms: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (once a device), 0 for any other."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return 0
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
 def _check_spectrum(F: torch.Tensor, m_bins: int, inputs: torch.Tensor | None, C: int,
                     device) -> int:
     """Check the master spectrum (and `inputs`) a kernel reads: [m_bins],
@@ -265,8 +306,9 @@ def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Te
     the module docstring), the tile params resp_tiles [C, S] c64 and
     tile_lo/slope/shifts [C] int32, and the IDFT matrix E [S, olen] c64.
     Equals filterbank.tiled_channelize (its plain version). E_op is
-    channelize_operand(E, n_bins, olen), the kernel's form of E, which the
-    caller builds once: the kernel needs it, the CPU path does not."""
+    channelize_operand(E, n_bins, olen), the one-shot design's form of E,
+    which the caller builds once: the kernel needs it, the CPU path does
+    not."""
     if F.device.type == "cpu":
         return tiled_channelize(F, resp_tiles, tile_lo, slope, shifts, E, n_bins, olen,
                                 real_master, master_N, inputs)
@@ -293,13 +335,25 @@ def cuda_channelize(F: torch.Tensor, resp_tiles: torch.Tensor, tile_lo: torch.Te
     out = torch.empty((C, olen), dtype=torch.complex64, device=dev)
     if C == 0:
         return out
+    _launch_channelize(F, resp_tiles, tile_lo, slope, shifts, E, E_op, out, n_bins, real_master,
+                       m_bins, ld, inputs,
+                       channelize_plan(C, n_pad, olen, sm_count(dev)) == "persistent")
+    return out
+
+
+def _launch_channelize(F, resp_tiles, tile_lo, slope, shifts, E, E_op, out, n_bins: int,
+                       real_master: bool, m_bins: int, ld: int, inputs, persistent: bool) -> None:
+    """Kernel A on checked tensors, in the design given (the card tests and
+    tools/channelize_designs_torch.py force each; cuda_channelize takes
+    channelize_plan's)."""
+    C, S = resp_tiles.shape
     nrows = -(-m_bins // _CTILE)
     w = float(np.float32(2.0 * np.pi / n_bins))
-    _launch("channelize", dev, F.data_ptr(), m_bins, ld, nrows, int(real_master),
+    _launch("channelize", F.device, F.data_ptr(), m_bins, ld, nrows, int(real_master),
             None if inputs is None else inputs.data_ptr(),
             resp_tiles.data_ptr(), tile_lo.data_ptr(), slope.data_ptr(), shifts.data_ptr(),
-            E_op.data_ptr(), C, S, olen, n_bins, n_pad, w, out.data_ptr())
-    return out
+            E_op.data_ptr(), E.data_ptr(), C, S, out.shape[1], n_bins, fold_pad(n_bins), w,
+            int(persistent), out.data_ptr())
 
 
 def cuda_noise_est(F: torch.Tensor, shifts: torch.Tensor, nbins: int, real_master: bool,

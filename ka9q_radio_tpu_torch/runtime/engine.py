@@ -61,7 +61,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..ops.cuda_channelize import channelize_operand, cuda_channelize, cuda_noise_est
+from ..ops.cuda_channelize import (channelize_operand, channelize_plan, cuda_channelize,
+                                   cuda_noise_est, fold_pad, sm_count)
 from ..ops.cuda_tail import cuda_linear_tail
 from ..ops.filter_design import design_bandpass_response, response_to_device_order
 from ..ops.filterbank import (
@@ -343,6 +344,22 @@ class _Group:
         self.fused_tail = takes_fused_tail(spec, device)
         self.lcs = self._local_consts()
         self.params = self._build_params()
+
+    def channelize_designs(self) -> list[tuple[int, str]]:
+        """Kernel A's launches a block in this process: (channels,
+        channelize_plan's design at them on the launch's card; "one-shot" off
+        a card), one a local shard of a split group on a mesh; none where the
+        group runs another channelizer."""
+        if self.tile_E is None:
+            return []
+        mesh, C = self.mesh, self.C
+        if mesh is None or not self.split:
+            shards = [(C, self.device if mesh is None else mesh.devices[mesh.local[0]])]
+        else:
+            q = -(-C // mesh.size)
+            shards = [(min(q, C - d * q), mesh.devices[d]) for d in mesh.local if d * q < C]
+        return [(c, channelize_plan(c, fold_pad(self.n_bins), self.olen, sm_count(dev)))
+                for c, dev in shards]
 
     def _local_consts(self) -> list:
         """Each shard's device constants (one entry off a mesh): the IDFT

@@ -2248,6 +2248,16 @@ class Radiod:
         return {"blocks": blocks, "linear_rows": blocks * sum(g.C for g in lin),
                 "fused_rows": blocks * sum(g.C for g in lin if g.fused_tail)}
 
+    def channelize_counts(self) -> dict:
+        """Kernel A since construction: the blocks emitted, and the
+        channel-blocks of the current engine's launches of it and of those
+        on its persistent design (`_Group.channelize_designs`: the plan at
+        each launch's C and card)."""
+        blocks = self._emission["blocks"]
+        launches = [ln for g in self.engine.groups.values() for ln in g.channelize_designs()]
+        return {"blocks": blocks, "a_rows": blocks * sum(c for c, _ in launches),
+                "persist_rows": blocks * sum(c for c, d in launches if d == "persistent")}
+
     def graph_stats(self) -> dict:
         """How dispatches ran on the card (GraphStep.graph_stats of the
         current engine, a mesh's included), and the totals of the engines

@@ -29,9 +29,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ladder(real_master: bool, C: int = 256, seed: int = 0, n_bins: int = 256, olen: int = 200):
+def _ladder(real_master: bool, C: int = 256, seed: int = 0, n_bins: int = 256, olen: int = 200,
+            master_N: int = 65_536):
     rng = np.random.default_rng(seed)
-    master_N = 65_536
     m_bins = master_N // 2 + 1 if real_master else master_N
     r = design_bandpass_response(n_bins, olen, 50 / 12e3, 3e3 / 12e3, 11.0, real_master, master_N)
     resp = (r[None, :] * np.exp(1j * rng.uniform(0, 2 * np.pi, (C, 1)))).astype(np.complex64)
@@ -88,6 +88,92 @@ def test_channelize_kernel_geometries(cuda, real_master, n_bins, olen, C):
     want = tfb.tiled_channelize(*args, *geo)
     torch.cuda.synchronize()
     assert got.shape == (C, olen) and torch.equal(got, again)
+    assert float((got - want).abs().max()) < 3e-5 * float(want.abs().max())
+
+
+def _crossover(n_bins: int, olen: int, device) -> int:
+    """The fewest channels (whole row tiles) that channelize_plan puts on
+    kernel A's persistent design on this card."""
+    sms, n_pad = tcc.sm_count(device), tcc.fold_pad(n_bins)
+    C = 64
+    while tcc.channelize_plan(C, n_pad, olen, sms) != "persistent":
+        C += 64
+        assert C < 1_000_000, "the plan never takes the persistent design at this shape"
+    return C
+
+
+# (real master, C or an offset from the crossover, n, olen, inputs, design forced or None for
+# channelize_plan's, master points)
+_DESIGN_CASES = {
+    "below_crossover": (True, -64, 300, 240, False, None, 3_240_000),
+    "at_crossover": (True, 0, 300, 240, False, None, 3_240_000),
+    "ragged_above": (True, 37, 300, 240, False, None, 3_240_000),
+    "flagship_real": (True, 32_728, 300, 240, False, None, 3_240_000),
+    "flagship_complex": (False, 32_728, 300, 240, False, None, 65_536),
+    "ragged_small_forced": (True, 257, 300, 240, False, "persistent", 65_536),
+    "one_tile_forced": (False, 12, 300, 240, False, "persistent", 65_536),
+    "odd_slice_forced": (True, 1_000, 301, 241, False, "persistent", 65_536),
+    "short_frame_forced": (False, 700, 100, 80, False, "persistent", 65_536),
+    "inputs": (True, 3_000, 300, 240, True, None, 65_536),
+    "inputs_complex_forced": (False, 96, 300, 240, True, "persistent", 65_536),
+    "n600": (True, 4_000, 600, 480, False, None, 3_240_000),
+}
+
+
+@pytest.mark.parametrize("case", list(_DESIGN_CASES))
+def test_channelize_designs(cuda, case):
+    """Kernel A's persistent design, where channelize_plan picks it and where
+    a case forces it, and the one-shot design beside it: C on both sides of
+    the plan's crossover and ragged above it, the flagship's 32,728 channels
+    on a real and on a complex master, a C that fills neither a row tile nor
+    the card's SMs, one row tile, an odd slice, a frame more than twice the slice,
+    channels on three inputs, n 600 / olen 480 (whose X tile does not fit:
+    the plan keeps it one-shot). Real masters carry inverted slices. Each
+    within 3e-5 of the plain version's peak, two launches bit-equal, and a
+    CUDA graph's replay equal to the eager call."""
+    real_master, C, n_bins, olen, multi, forced, master_N = _DESIGN_CASES[case]
+    if case in ("below_crossover", "at_crossover", "ragged_above"):
+        C += _crossover(n_bins, olen, cuda)
+    if multi:
+        arrays, geo, inputs = _multi_ladder(real_master, C=C, seed=C)
+        inp = torch.as_tensor(inputs, device=cuda)
+    else:
+        arrays, geo = _ladder(real_master, C=C, seed=C + n_bins, n_bins=n_bins, olen=olen,
+                              master_N=master_N)
+        inp = None
+    F, rt, tl, sl, shifts, E = [torch.as_tensor(a, device=cuda) for a in arrays]
+    n_bins, olen, real_master, master_N = geo
+    op = tcc.channelize_operand(E, n_bins, olen)
+    plan = tcc.channelize_plan(C, tcc.fold_pad(n_bins), olen, tcc.sm_count(cuda))
+    design = forced or plan
+    assert plan == {"below_crossover": "one-shot", "n600": "one-shot"}.get(case, plan)
+    if case in ("at_crossover", "ragged_above", "flagship_real", "flagship_complex", "inputs"):
+        assert plan == "persistent"
+    m_bins = master_N // 2 + 1 if real_master else master_N
+    ld = F.shape[1] if multi else 0
+
+    def call():
+        if forced is None:
+            return tcc.cuda_channelize(F, rt, tl, sl, shifts, E, *geo, E_op=op, inputs=inp)
+        out = torch.empty((C, olen), dtype=torch.complex64, device=cuda)
+        tcc._launch_channelize(F, rt, tl, sl, shifts, E, op, out, n_bins, real_master, m_bins,
+                               ld, inp, design == "persistent")
+        return out
+
+    got, again = call(), call()
+    want = tfb.tiled_channelize(F, rt, tl, sl, shifts, E, *geo, inputs=inp)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert got.shape == (C, olen) and torch.equal(got, again)
+    assert torch.equal(replayed, got)
     assert float((got - want).abs().max()) < 3e-5 * float(want.abs().max())
 
 

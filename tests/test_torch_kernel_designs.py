@@ -182,6 +182,97 @@ def test_x_placement_matches_operand_rows(n_bins, olen):
     torch.testing.assert_close(X @ stored, want, rtol=1e-12, atol=1e-12)
 
 
+def persistent_table(E: torch.Tensor, n_bins: int, olen: int) -> torch.Tensor:
+    """The persistent design's table as its kernel builds it: [n, 2] (Re, Im)
+    of E[k, olen - 1] for k = (n/2 - m) mod n, which is the n-th root T[m] / n."""
+    m = torch.arange(n_bins)
+    e = E[(n_bins // 2 - m + n_bins) % n_bins, olen - 1]
+    return torch.stack([e.real, e.imag], -1)
+
+
+def persistent_constant(E: torch.Tensor, n_bins: int, olen: int):
+    """The constant's A fragments as the persistent design looks them up and
+    splits them (cvt.rna, as round_tf32): [n_pad, olen, 4] (Re hi, Re lo, Im
+    hi, Im lo) of E[k, t], zero for k >= n_bins."""
+    n_pad = tcc.fold_pad(n_bins)
+    k = torch.arange(n_pad)[:, None]
+    t = torch.arange(olen)[None, :]
+    m = ((k - n_bins // 2 + n_bins) * (n_bins - olen + t)) % n_bins
+    v = persistent_table(E, n_bins, olen)[m]
+    hi = tcc.round_tf32(v)
+    lo = tcc.round_tf32(v - hi)
+    A = torch.stack([hi[..., 0], lo[..., 0], hi[..., 1], lo[..., 1]], -1)
+    return torch.where((k < n_bins)[..., None], A, torch.zeros(()))
+
+
+@pytest.mark.parametrize("n_bins,olen", GEOMETRIES + [(320, 256), (200, 160), (16, 12)])
+def test_persistent_constant_is_the_operands_bits(n_bins, olen):
+    """Every entry the persistent design looks up from its n-entry table and
+    splits equals the operand's own hi and lo of E[k, t] (its Re-x rows,
+    columns 2t and 2t + 1) bit for bit."""
+    S = tfb.tile_plan(n_bins) * 128
+    E = torch.from_numpy(tfb.tiled_idft_matrix(n_bins, olen, S))
+    op = tcc.channelize_operand(E, n_bins, olen)
+    hi, lo = _unpack_operand(op, n_bins, olen)
+    A = persistent_constant(E, n_bins, olen)
+    n_pad = tcc.fold_pad(n_bins)
+    want = torch.stack([hi[:n_pad, 0:2 * olen:2], lo[:n_pad, 0:2 * olen:2],
+                        hi[:n_pad, 1:2 * olen:2], lo[:n_pad, 1:2 * olen:2]], -1)
+    assert torch.equal(A.view(torch.int32), want.contiguous().view(torch.int32))
+
+
+def emulate_persistent(F, rt, tl, sl, shifts, E, n_bins, olen, real_master, master_N):
+    """The persistent design's arithmetic: the same fold and TF32 split of
+    X, against the Re-x rows of the constant only, P = Xr . [Er, Ei], Q =
+    Xi . [Er, Ei] (three products each), Y = (P_re - Q_im) + i (P_im +
+    Q_re), conj, ramp."""
+    T = 128
+    C, S = rt.shape
+    m_bins = master_N // 2 + 1 if real_master else master_N
+    lo = tl.to(torch.int64)[:, None] + torch.arange(S // T)[None, :]
+    if real_master:
+        rows = torch.nn.functional.pad(F, (0, (-m_bins) % T)).reshape(-1, T)
+        lo = lo.clamp(0, rows.shape[0] - 1)
+    else:
+        rows = F.reshape(-1, T)
+        lo = torch.remainder(lo, rows.shape[0])
+    x = rows[lo].reshape(C, S) * rt
+    n_pad = tcc.fold_pad(n_bins)
+    xf = torch.zeros((C, n_pad), dtype=torch.complex64)
+    for j0 in range(0, S, n_bins):
+        xf[:, : min(n_bins, S - j0)] += x[:, j0: j0 + n_bins]
+    A = persistent_constant(E, n_bins, olen)
+    out = []
+    for X in (xf.real.contiguous(), xf.imag.contiguous()):
+        x_hi = tcc.round_tf32(X)
+        x_lo = tcc.round_tf32(X - x_hi)
+        out.append([x_hi @ A[..., lo_] + x_lo @ A[..., hi_] + x_hi @ A[..., hi_]
+                    for hi_, lo_ in ((0, 1), (2, 3))])  # [Re E part, Im E part]
+    (p_re, p_im), (q_re, q_im) = out
+    Y = torch.complex(p_re - q_im, p_im + q_re)
+    if real_master:
+        Y = torch.where((shifts < 0)[:, None], Y.conj(), Y)
+    t_abs = torch.arange(n_bins - olen, n_bins, dtype=torch.int64)[None, :]
+    ph = torch.remainder(sl.to(torch.int64)[:, None] * t_abs, n_bins).to(torch.float32)
+    ang = ph * float(np.float32(2.0 * np.pi / n_bins))
+    return Y * torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+@pytest.mark.parametrize("real_master", [True, False])
+@pytest.mark.parametrize("n_bins,olen", GEOMETRIES)
+def test_persistent_arithmetic_matches_jax(n_bins, olen, real_master):
+    """The persistent design's sum (the Re-x rows twice, into P and Q)
+    against JAX's tiled_channelize within 3e-5 * scale, and against the
+    one-shot design's emulation within 2e-6 * scale (the same products,
+    summed in another order)."""
+    args, want = _jax_case(n_bins, olen, real_master)
+    got = emulate_persistent(*args).numpy()
+    one_shot = emulate_kernel_a(*args).numpy()
+    scale = np.abs(want).max()
+    assert np.max(np.abs(got - want)) < 3e-5 * scale
+    assert np.max(np.abs(got - one_shot)) < 2e-6 * scale
+
+
 def select_mirror(keys: np.ndarray, i: int):
     """Kernel B's integer steps, per row: bisect [max(min, 0), max(max, lo)]
     for the smallest v with count(keys <= v) >= i + 1, then the i+1 rule.
